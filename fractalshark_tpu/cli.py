@@ -23,7 +23,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fractalshark-tpu",
-        description="TPU-native deep-zoom Mandelbrot renderer")
+        description="Deep-zoom Mandelbrot renderer on JAX")
     p.add_argument("--render-algorithm", default="AUTO",
                    help="algorithm name (reference-compatible, e.g. Cpu64, "
                         "Tpu1x32, TpuHDRx32PerturbedLAv2, AUTO)")
@@ -54,12 +54,13 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="K",
                    help="drop the K finest LA stages from the device "
                         "table; straggler pixels finish in the "
-                        "streaming tail (deep-render perf lever)")
+                        "perturbation tail (deep-render perf lever)")
     p.add_argument("--perturbation-alg", default="Auto",
                    choices=["Auto", "ST", "MT", "Native", "GPU", "TPU"],
                    help="reference-orbit backend (reference flag parity: "
-                        "Auto picks native C++ when available; GPU/TPU = "
-                        "on-device NTT pipeline; ST/MT = Python host)")
+                        "Auto picks native C++ when available; GPU = "
+                        "on-device NTT pipeline, TPU an alias of GPU; "
+                        "ST/MT = Python host)")
     p.add_argument("--commit-cap-bytes", type=int, default=None,
                    help="soft memory budget for planned device buffers")
     p.add_argument("--stats", action="store_true",
@@ -92,7 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--socket", default=None,
                    help="unix socket path for --serve/--client "
                         "(default $FRACTALSHARK_SOCK or "
-                        "/tmp/fractalshark_tpu.sock)")
+                        "fractalshark_tpu.sock in the temp directory)")
     p.add_argument("--warm", default=None, metavar="V1,V2",
                    help="with --serve: render these view presets once "
                         "at startup so later requests hit warm "
@@ -325,6 +326,7 @@ def main(argv=None, orbit_calc=None) -> int:
             "wall_s": round(elapsed, 4),
             "per_pixel_s": round(f.benchmark.per_pixel_s, 4),
             "backend": f.backend,
+            "kernel": f.benchmark.extra.get("kernel"),
         }))
 
     if args.save_location:
@@ -339,13 +341,6 @@ def main(argv=None, orbit_calc=None) -> int:
             description="fractalshark-tpu")
         with open(args.save_location, "a") as fh:
             fh.write(serialize(loc) + "\n")
-
-    # a daemon prewarm thread killed mid-remote-compile at interpreter
-    # exit aborts from inside the runtime's C++; wait for any in-flight
-    # compile (only blocks when the render used a different executable
-    # bucket than the prewarm, e.g. --la-stage-window)
-    from fractalshark_tpu.engine import prewarm
-    prewarm.join_all()
     return 0
 
 

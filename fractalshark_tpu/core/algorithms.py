@@ -2,14 +2,14 @@
 
 The reference registers ~60 algorithm variants via a compile-time trait
 table (``FractalSharkLib/RenderAlgorithm.h:81-159`` enum,
-``:175-1530`` traits, ``:1593-1672`` runtime array).  TPU-natively the 60
+``:175-1530`` traits, ``:1593-1672`` runtime array).  Here the 60
 variants collapse to a few dtype-parameterized kernel families; this
 registry keeps the full reference name surface (so CLI flags and saved
 files interoperate) and maps each name to {family, dtype, LA mode,
 compression}.
 
 Naming: reference "Gpu*" names are accepted verbatim and also as "Tpu*"
-aliases; the accelerated implementations here run on TPU.
+aliases; AUTO picks them on any accelerator platform.
 
 dtype codes:
   f32 / f64        — native float

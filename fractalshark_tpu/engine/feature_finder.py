@@ -15,7 +15,7 @@ Rebuild of ``FractalSharkLib/FeatureFinder.{h,cpp}`` (interface
   ``FeatureFinder.h:25-39``).
 
 The inner orbit evaluation is the same fixed-point big-int loop as the
-host reference orbit; a TPU backend can drop in via the NTT pipeline
+host reference orbit; the device NTT pipeline can drop in
 (the reference's NRInnerLoopBackend selects MPIR-MT vs GPU the same
 way).
 """

@@ -54,18 +54,15 @@ class LAParameters:
     # (10^15-iteration budgets = tens of thousands of wraps/pixel) needs
     # low_bound=1; see tools/view27_la.py and docs/DESIGN.md.
     low_bound: int = LOW_BOUND
-    # TPU-native perf lever with no reference analogue: drop the k
-    # finest LA stages from the DEVICE table (LAReferenceHost
-    # .stage_window — the same mechanism that caps the View #27 table
-    # to HBM).  Pixels that would have descended into the dropped
-    # stages take their micro-iterations in the streaming RC tail,
-    # which amortizes lockstep steps across all pixels instead of
-    # paying one packed HBM gather per pixel per step.  Measured on the
-    # View #6 512² deep render (tools/ab_la_depth.py, warm,
-    # alternating reps): phase-1 3.61 s → 2.39 s at k=2 with the tail
-    # flat; iteration counts shift by ~1.6e-7 relative (same class of
-    # change as the reference's MaxPerf threshold rescale,
-    # LAParameters.cpp:266-272).  0 = off.
+    # Perf lever with no reference analogue: drop the k finest LA
+    # stages from the DEVICE table (LAReferenceHost.stage_window — the
+    # same mechanism that caps the View #27 table to device memory).
+    # Pixels that would have descended into the dropped stages take
+    # their micro-iterations in the perturbation tail instead.
+    # Iteration counts shift by ~1.6e-7 relative on View #6 (same class
+    # of change as the reference's MaxPerf threshold rescale,
+    # LAParameters.cpp:266-272); its speed is not measured on the H100.
+    # 0 = off.
     device_stage_window: int = 0
 
     @staticmethod

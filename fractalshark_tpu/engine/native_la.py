@@ -176,13 +176,13 @@ class LAReferenceArrays(LAReferenceHost):
         }
 
     def stage_window(self, min_stage: int) -> "LAReferenceArrays":
-        """A table holding only stages ``>= min_stage`` — the
-        HBM-fitting device table for period-billions views.  View #27's
-        full table is 426.6M nodes (~37 GB as device arrays, vs 16 GB
-        HBM); its stage 0 is ~85% of the nodes, and dropping it only
-        moves each pixel's one-time tail handoff earlier by at most one
-        stage-1 macro step (~stage-1 step_length extra streamed tail
-        iterations per pixel — noise against a 5e13 budget).
+        """A table holding only stages ``>= min_stage`` — a smaller
+        device table for period-billions views.  View #27's full table
+        is 426.6M nodes (~37 GB as device arrays); its stage 0 is ~85%
+        of the nodes, and dropping it only moves each pixel's one-time
+        tail handoff earlier by at most one stage-1 macro step
+        (~stage-1 step_length extra tail iterations per pixel — noise
+        against a 5e13 budget).
 
         The dropped stage's role in the handoff is preserved exactly:
         the machine hands ``NextStageLAIndex`` of the last unusable

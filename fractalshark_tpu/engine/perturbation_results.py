@@ -105,7 +105,7 @@ class PerturbationResults:
         """Device-resident orbit arrays, cached on this results object —
         the analogue of the reference's generation-keyed device orbit
         cache (GPU_Types.h:177-389 PerturbResultsCollection): repeated
-        renders from the same orbit reuse the HBM upload; the cache
+        renders from the same orbit reuse the device upload; the cache
         dies with the results object (one generation = one orbit)."""
         import jax.numpy as jnp
         key = f"dev_orbit_{np.dtype(dtype).name}"

@@ -5,7 +5,7 @@ Host-side equivalent of ``RefOrbitCalc``
 z ← z² + c runs in *fixed-point binary on Python integers* (replacing
 MPIR): value = mant / 2^F with F = precision bits. Squarings are big-int
 multiplies; CPython's Karatsuba covers moderate precision, and a native
-module / the NTT TPU pipeline take over at scale.
+module / the device NTT pipeline take over at scale.
 
 Semantics mirrored from the reference ST loop
 (``RefOrbitCalc.cpp:470-625``):
@@ -194,11 +194,12 @@ class RefOrbitCalc:
     # the cache fits
     memory_budget = None
     last_details: dict = field(default_factory=dict)
+    hits: int = 0           # requests served from the cache
     # "auto"  = native if buildable, else host
     # "native"= C++/GMP mpn fixed-point evaluator (MT3-CPU analogue)
     # "host"  = fixed-point Python-int orbit (portable fallback)
-    # "device"= NTT bignum pipeline on TPU (GPU-orbit analogue,
-    #           RefOrbitCalc.cpp:2167)
+    # "device"= NTT bignum pipeline on the accelerator (GPU-orbit
+    #           analogue, RefOrbitCalc.cpp:2167)
     orbit_backend: str = "auto"
     # Perturbed-perturbation reuse across zooms (ReuseModes,
     # RefOrbitCalc.h:131-137): "off" = never; "on" = record the
@@ -219,6 +220,7 @@ class RefOrbitCalc:
         with self.lock:
             for res in reversed(self.cache):
                 if res.is_useful_for(ptz, num_iterations):
+                    self.hits += 1
                     self.last_details = {"cache_hit": True,
                                          "orbit_len": res.count_orbit_entries(),
                                          "period": res.period}

@@ -3,17 +3,16 @@
 The analogue of the reference's CalcGpuPerturbationFractal* /
 CalcCpuPerturbationFractal* family (``Fractal.cpp:2230-2790``): fetch or
 compute a reference orbit (cached), build the per-pixel delta grid, run
-the dtype-appropriate delta kernel.  LA (LAv2) table acceleration plugs
-in here once built: LAv2 algorithms run {AT skip → LA stepping →
-perturbation tail}; until the LA table is attached they fall back to the
-pure perturbation tail (≡ the reference's PO mode with zero skip).
+the dtype-appropriate delta kernel.  LAv2 algorithms run {AT skip → LA
+stepping → perturbation tail}; PO mode is the pure perturbation tail.
+RC ("runtime decompression") algorithms render from the compressed
+orbit and never upload the uncompressed one.
 """
 
 from __future__ import annotations
 
 import time
 
-import jax
 import numpy as np
 
 from fractalshark_tpu.core.algorithms import Family, LAMode, RenderAlgorithm
@@ -31,12 +30,6 @@ def calc_perturbed(fractal, alg: RenderAlgorithm):
     w, h = fractal._render_dims()
     calc = get_orbit_calc(fractal)
 
-    if fractal.backend == "tpu" and alg.family is Family.PERTURB_LAV2:
-        # hide the deep render's compilation under the orbit phase
-        # (idempotent; no-op when this geometry is already warm)
-        from fractalshark_tpu.engine.prewarm import prewarm_once
-        prewarm_once(fractal.ptz, w, h, fractal.num_iterations)
-
     t0 = time.perf_counter()
     results = calc.get_and_create_useful_results(
         fractal.ptz, fractal.num_iterations)
@@ -47,53 +40,31 @@ def calc_perturbed(fractal, alg: RenderAlgorithm):
               alg.la_mode in (LAMode.FULL, LAMode.LAO))
     la = None
     if use_la:
-        try:
-            from fractalshark_tpu.engine.la_reference import get_or_build_la
-        except ImportError:
-            get_or_build_la = None  # LA subsystem not built yet
-        if get_or_build_la is not None:
-            t0 = time.perf_counter()
-            la = get_or_build_la(fractal, results)
-            fractal.benchmark.la_generation_s = time.perf_counter() - t0
+        from fractalshark_tpu.engine.la_reference import get_or_build_la
+        t0 = time.perf_counter()
+        la = get_or_build_la(fractal, results)
+        fractal.benchmark.la_generation_s = time.perf_counter() - t0
+    sub = np.float32 if alg.dtype in ("f32", "hdr32", "2x32",
+                                      "hdr2x32") else np.float64
+
+    if alg.runtime_decompression:
+        return rc_render(fractal, results, alg, la, w, h, sub)
 
     if la is not None:
-        from fractalshark_tpu.ops import la_kernel
-        sub = np.float32 if alg.dtype in ("f32", "hdr32", "2x32",
-                                          "hdr2x32") else np.float64
-        if (alg.runtime_decompression and fractal.backend == "tpu"
-                and sub == np.float32
-                and alg.la_mode is LAMode.FULL):
-            # LAv2-RC two-phase: LA stepping from the node table, then
-            # the perturbation tail straight from the COMPRESSED orbit
-            # (per-pixel jwait handoff into the RC streaming kernel) —
-            # the uncompressed orbit is never uploaded
-            out = la_rc_render(fractal, results, la, w, h)
-            if out is not None:
-                fractal.benchmark.extra["kernel"] = "lav2-rc-stream"
-                return out
-        if (fractal.backend == "tpu" and sub == np.float32 and
-                alg.la_mode is not LAMode.LAO):
-            from fractalshark_tpu.ops.la_pallas import la_render_pallas
-            out = la_render_pallas(
-                results, la, fractal.ptz, w, h, fractal.num_iterations)
-            if out is not None:
-                fractal.benchmark.extra["kernel"] = "pallas-lav2"
-                return out
-            # two-phase: LA machine to tail entry, then the
-            # GATHER-FREE streaming tail (identity anchors) —
-            # measured 5x the interleaved one-kernel machine on a
-            # 458k-entry deep view, pixel-identical; 64-bit budgets
-            # ride the streaming kernels' remaining-count pairs
-            out = la_rc_render(fractal, results, la, w, h,
-                               identity=True)
-            if out is not None:
-                fractal.benchmark.extra["kernel"] = "lav2-stream"
-                return out
-        return la_kernel.la_perturb_render(
-            results, la, fractal.ptz, w, h, fractal.num_iterations,
-            sub_dtype=sub,
-            la_only=(alg.la_mode is LAMode.LAO),
-            abort_monitor=fractal.abort_monitor)
+        if alg.la_mode is LAMode.LAO:
+            from fractalshark_tpu.ops import la_kernel
+            fractal.benchmark.extra["kernel"] = "lav2-lao"
+            return la_kernel.la_perturb_render(
+                results, la, fractal.ptz, w, h, fractal.num_iterations,
+                sub_dtype=sub, la_only=True,
+                abort_monitor=fractal.abort_monitor)
+        # two-phase measured faster than the one-kernel machine at the
+        # 1024² and 2048² View #6 renders on an H100 (PERF.md)
+        fractal.benchmark.extra["kernel"] = "lav2"
+        return two_phase_render(results, la, fractal.ptz, w, h,
+                                fractal.num_iterations,
+                                abort_monitor=fractal.abort_monitor,
+                                sub_dtype=sub)
 
     if alg.family is Family.PERTURB_SCALED:
         from fractalshark_tpu.ops import scaled
@@ -128,175 +99,74 @@ def calc_perturbed(fractal, alg: RenderAlgorithm):
             results, fractal.ptz, w, h, fractal.num_iterations)
 
     if alg.dtype in ("hdr32", "hdr64"):
-        sub = np.float64 if alg.dtype == "hdr64" else np.float32
-        if (alg.runtime_decompression and fractal.backend == "tpu"
-                and sub == np.float32):
-            # RC: render straight from the compressed orbit — the
-            # kernel reconstructs reference values on device
-            # (Perturb.cuh:8-120 analogue); the full orbit is never
-            # uploaded
-            from fractalshark_tpu.engine.perturbation_results import \
-                CompressedOrbit
-            from fractalshark_tpu.ops.perturb_stream import \
-                perturb_render_stream_rc
-            comp = results.extra.get("compressed_orbit")
-            if comp is None:
-                comp = CompressedOrbit.from_uncompressed(
-                    results, error_exp=fractal.compression_error_exp)
-                results.extra["compressed_orbit"] = comp
-            fractal.benchmark.extra["compression_ratio"] = round(
-                comp.compression_ratio(), 2)
-            out = perturb_render_stream_rc(
-                comp, results.center_x, results.center_y, fractal.ptz,
-                w, h, fractal.num_iterations,
-                abort_monitor=fractal.abort_monitor)
-            if out is not None:
-                fractal.benchmark.extra["kernel"] = "pallas-stream-rc"
-                return out
-        if fractal.backend == "tpu" and sub == np.float32:
-            # VMEM-resident Pallas kernel (~40× the XLA gather path);
-            # returns None when the orbit exceeds its VMEM budget
-            from fractalshark_tpu.ops.perturb_pallas import \
-                perturb_render_pallas
-            out = perturb_render_pallas(
-                results, fractal.ptz, w, h, fractal.num_iterations)
-            if out is not None:
-                fractal.benchmark.extra["kernel"] = "pallas"
-                return out
-            # orbit too long for VMEM: stream it from HBM in lockstep
-            # sweeps (no length cap)
-            from fractalshark_tpu.ops.perturb_stream import \
-                perturb_render_stream
-            out = perturb_render_stream(
-                results, fractal.ptz, w, h, fractal.num_iterations,
-                abort_monitor=fractal.abort_monitor)
-            if out is not None:
-                fractal.benchmark.extra["kernel"] = "pallas-stream"
-                return out
         return perturb.perturb_render_hdr(
             results, fractal.ptz, w, h, fractal.num_iterations,
             sub_dtype=sub)
     raise NotImplementedError(f"perturbed dtype {alg.dtype}")
 
 
-def la_rc_render(fractal, results, la, w, h, identity: bool = False):
-    """Two-phase LAv2: phase 1 runs the LA machine to tail entry
-    (la_only + state export); phase 2 finishes every pixel in the
-    streaming tail kernel, joining the lockstep at its per-pixel
-    ref_iter (the reference decompresses inside the render kernel,
-    Perturb.cuh:8-120 — here the tail phase does).
-
-    identity=False: RC mode — tail reconstructs from the REAL
-    compressed orbit.  identity=True: every entry an anchor — an exact
-    gather-free streaming tail for uncompressed orbits (the tail of
-    the one-kernel machine is gather-bound; measured 5x)."""
-    import numpy as np
-
+def compressed_orbit(results, error_exp: int):
+    """The SimpleCompression form of ``results`` at ``error_exp``,
+    cached on the results object (one compression per orbit)."""
     from fractalshark_tpu.engine.perturbation_results import \
         CompressedOrbit
+    cache = results.extra.setdefault("compressed_orbit", {})
+    if error_exp not in cache:
+        cache[error_exp] = CompressedOrbit.from_uncompressed(
+            results, error_exp=error_exp)
+    return cache[error_exp]
+
+
+def rc_render(fractal, results, alg: RenderAlgorithm, la, w, h, sub):
+    """Runtime-decompression render: the device only ever holds the
+    compressed orbit's anchors (the reference decompresses inside the
+    render kernel, Perturb.cuh:8-120).  LA stepping runs on a
+    ``VirtualResults`` stand-in (its tail branch never reads the orbit);
+    the perturbation tail reconstructs reference values from the anchors
+    (ops/rc_tail.py).  Without an LA table the tail starts from fresh
+    pixels."""
+    from fractalshark_tpu.engine.perturbation_results import \
+        VirtualResults
     from fractalshark_tpu.ops import la_kernel
-    from fractalshark_tpu.ops.perturb_stream import \
-        perturb_render_stream_rc
+    from fractalshark_tpu.ops.rc_tail import rc_tail_gather
 
-    if identity:
-        comp = results.extra.get("identity_compressed")
-        if comp is None:
-            comp = CompressedOrbit.identity(results)
-            results.extra["identity_compressed"] = comp
-    else:
-        comp = results.extra.get("compressed_orbit")
-        if comp is None:
-            comp = CompressedOrbit.from_uncompressed(
-                results, error_exp=fractal.compression_error_exp)
-            results.extra["compressed_orbit"] = comp
-        fractal.benchmark.extra["compression_ratio"] = round(
-            comp.compression_ratio(), 2)
+    comp = compressed_orbit(results, fractal.compression_error_exp)
+    fractal.benchmark.extra["compression_ratio"] = round(
+        comp.compression_ratio(), 2)
     n = fractal.num_iterations
-    init = None
-    # Phase 1 default: the XLA LA machine (one packed gather per body
-    # step).  Measured A/B on View #30 512² (9-stage table, period
-    # 669,773; tools/probe_view30_render.py, warm): XLA machine 1.0 s
-    # vs streaming sweep machine 6.3 s — at render-scale pixel counts
-    # the gathers amortize and the lockstep stage sweeps cost more
-    # than they save.  The streaming machine stays selectable
-    # (FRACTALSHARK_LA_PHASE=stream) as the pixel-identical
-    # alternative; both are pinned to the one-kernel machine in
-    # tests/test_la_stream.py.
-    import os
-    if (fractal.backend == "tpu"
-            and os.environ.get("FRACTALSHARK_LA_PHASE") == "stream"):
-        from fractalshark_tpu.ops.la_stream import la_phase_stream
-        try:
-            init = la_phase_stream(results, la, fractal.ptz, w, h, n,
-                                   abort_monitor=fractal.abort_monitor)
-        except Exception as e:  # noqa: BLE001 — fall back, keep note
-            fractal.benchmark.extra["la_stream_error"] = repr(e)[:160]
-            init = None
-        if init is not None:
-            fractal.benchmark.extra["la_phase"] = "stream"
-            return perturb_render_stream_rc(
-                comp, results.center_x, results.center_y, fractal.ptz,
-                w, h, n, init_state=init,
-                abort_monitor=fractal.abort_monitor)
-    pads = {}
-    if fractal.backend == "tpu":
-        from fractalshark_tpu.engine.prewarm import deep_buckets
-        pads = deep_buckets(results, la)
-    return two_phase_render(results, la, fractal.ptz, w, h, n,
-                            comp=comp,
+    if la is None:
+        fractal.benchmark.extra["kernel"] = "rc"
+        return rc_tail_gather(
+            comp, results.center_x, results.center_y, fractal.ptz, w, h, n,
+            abort_monitor=fractal.abort_monitor, sub_dtype=sub)
+    virt = VirtualResults.from_compressed(comp, results.center_x,
+                                          results.center_y)
+    if alg.la_mode is LAMode.LAO:
+        fractal.benchmark.extra["kernel"] = "lav2-rc-lao"
+        return la_kernel.la_perturb_render(
+            virt, la, fractal.ptz, w, h, n, sub_dtype=sub, la_only=True,
+            abort_monitor=fractal.abort_monitor)
+    fractal.benchmark.extra["kernel"] = "lav2-rc"
+    return two_phase_render(virt, la, fractal.ptz, w, h, n, comp=comp,
                             abort_monitor=fractal.abort_monitor,
-                            **pads)
-
-
-@jax.jit
-def _handoff_init(ref_iter, it, n):
-    """Phase-1 state → RC-tail init conversions as one executable."""
-    import jax.numpy as jnp
-    it64 = it.astype(jnp.int64)
-    return (it64, ref_iter.astype(jnp.int64),
-            (it64 >= n).astype(jnp.int32))
-
-
-# a sweep-tail pass costs O(total_count) lockstep steps (the serial
-# reconstruction cursor visits every orbit position); beyond this
-# length the gather tail (O(per-pixel work), ops/rc_tail.py) wins even
-# though each of its steps pays an HBM anchor gather.  View #30's
-# period 669,773 stays comfortably on the sweep side; View #27's
-# 28.3e9 (hours per sweep pass) routes to the gather.
-_GATHER_TAIL_MIN_ORBIT = 64_000_000
+                            sub_dtype=sub)
 
 
 def two_phase_render(results, la, ptz, w, h, n, *, comp=None,
-                     abort_monitor=None, interpret=False,
-                     pad_orbit_to=None, pad_nodes_to=None,
-                     pad_stages_to=None, pad_anchors_to=None,
-                     release_la_tables=False, tail="auto"):
-    """Fractal-independent two-phase LAv2 deep render: the XLA LA
-    machine to tail entry, per-pixel jwait handoff, then the RC
-    streaming tail.  The `pad_*` buckets make every compiled
-    executable's identity independent of the live orbit/LA sizes so the
-    whole render can be pre-compiled before the orbit exists
-    (engine/prewarm.py) and reused across same-bucket views.
-
-    ``tail`` selects the phase-2 kernel: "sweep" = the lockstep
-    streaming RC kernel (ops/perturb_stream.py), "gather" = the
-    per-pixel gather state machine (ops/rc_tail.py), "auto" = gather
-    once the orbit length makes a sweep pass intractable
-    (>= _GATHER_TAIL_MIN_ORBIT positions; env override
-    FRACTALSHARK_RC_TAIL).
-
-    ``release_la_tables`` drops the LA table's generation-keyed device
-    cache between the phases: at View #27 scale the stage-windowed node
-    tables (~5-6 GB) and the anchor store (~8.7 GB) cannot coexist in
-    16 GB HBM alongside render state — and a one-shot endurance frame
-    has no warm next frame to keep the cache for."""
+                     abort_monitor=None, sub_dtype=np.float32):
+    """Two-phase LAv2 deep render: phase 1 runs the LA machine to tail
+    entry (la_only + state export); phase 2 finishes every pixel in the
+    gather tail from its per-pixel orbit position (ops/rc_tail.py).
+    ``comp`` is the compressed orbit the tail reads (default: identity
+    anchors of ``results``, i.e. an exact evaluator of the uncompressed
+    orbit).  ``results`` may be a ``VirtualResults``: phase 1 never reads
+    the orbit."""
     import jax.numpy as jnp
 
     from fractalshark_tpu.engine.perturbation_results import \
         CompressedOrbit
     from fractalshark_tpu.ops import la_kernel
-    from fractalshark_tpu.ops.perturb_stream import \
-        perturb_render_stream_rc
+    from fractalshark_tpu.ops.rc_tail import rc_tail_gather
 
     if comp is None:
         comp = results.extra.get("identity_compressed")
@@ -304,36 +174,11 @@ def two_phase_render(results, la, ptz, w, h, n, *, comp=None,
             comp = CompressedOrbit.identity(results)
             results.extra["identity_compressed"] = comp
     state = la_kernel.la_perturb_render(
-        results, la, ptz, w, h, n, sub_dtype=np.float32,
-        la_only=True, return_state=True, abort_monitor=abort_monitor,
-        pad_orbit_to=pad_orbit_to, pad_nodes_to=pad_nodes_to,
-        pad_stages_to=pad_stages_to)
+        results, la, ptz, w, h, n, sub_dtype=sub_dtype,
+        la_only=True, return_state=True, abort_monitor=abort_monitor)
     _, _, ref_iter, dzr, dzi, dze, it, _ = state
-    # live device arrays straight into the RC tail (no numpy round
-    # trip), and the conversions as ONE executable (eager op loads cost
-    # ~0.5 s each per cold process)
-    it64, jwait, done = _handoff_init(ref_iter, it, np.int64(n))
-    init = {"dzr": dzr, "dzi": dzi, "dze": dze, "it": it64,
-            "jwait": jwait, "done": done}
-    if release_la_tables:
-        # the handoff tensors above are the only live phase-1 outputs;
-        # block on them, then free the node/orbit device tables
-        jax.block_until_ready(it64)
-        cache = getattr(la, "_packed_cache", None)
-        if cache is not None:
-            cache.clear()
-    import os
-    tail = os.environ.get("FRACTALSHARK_RC_TAIL", tail)
-    if tail == "auto":
-        tail = ("gather"
-                if int(comp.total_count) >= _GATHER_TAIL_MIN_ORBIT
-                and not interpret else "sweep")
-    if tail == "gather":
-        from fractalshark_tpu.ops.rc_tail import rc_tail_gather
-        return rc_tail_gather(
-            comp, results.center_x, results.center_y, ptz, w, h, n,
-            init_state=init, abort_monitor=abort_monitor)
-    return perturb_render_stream_rc(
-        comp, results.center_x, results.center_y, ptz, w, h,
-        n, init_state=init, abort_monitor=abort_monitor,
-        interpret=interpret, pad_anchors_to=pad_anchors_to)
+    init = {"dzr": dzr, "dzi": dzi, "dze": dze, "it": it,
+            "jwait": ref_iter, "done": (it >= n).astype(jnp.int32)}
+    return rc_tail_gather(
+        comp, results.center_x, results.center_y, ptz, w, h, n,
+        init_state=init, abort_monitor=abort_monitor, sub_dtype=sub_dtype)

@@ -1,6 +1,6 @@
 """Fixed-point big-number arithmetic on 16-bit digit arrays (device).
 
-TPU-native counterpart of ``HpSharkFloat``
+Counterpart of ``HpSharkFloat``
 (``HpSharkFloatLib/HpSharkFloat.h:243-321``) specialized to the z←z²+c
 iteration: numbers are **sign-magnitude fixed point**
 
@@ -23,7 +23,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -110,11 +109,11 @@ def digits_to_float(sign: int, digits: np.ndarray, spec: FixedSpec) -> float:
 # dependent while-loop moves a carry ONE digit per trip, and real
 # operands hit the pathological case — View #30's center is -2+eps,
 # whose magnitude is ~380,000 consecutive 1-bits (all-0xFFFF digits),
-# so every +c rippled across ~23k digits per trip (measured 17.5x
-# slowdown on the whole orbit iteration).  One bulk trip reduces all
-# carries to <=1, then a Kogge-Stone (generate, propagate) prefix scan
-# resolves every chain in log2(L) passes, data-independent (the
-# reference bounds its grid carry passes the same way, Add.cu).
+# so every +c would ripple across ~23k digits one trip at a time.  One
+# bulk trip reduces all carries to <=1, then a Kogge-Stone (generate,
+# propagate) prefix scan resolves every chain in log2(L) passes,
+# data-independent (the reference bounds its grid carry passes the same
+# way, Add.cu).
 
 
 def _shift_up(a):
@@ -127,8 +126,8 @@ def _ks_prefix(g, p):
     """Inclusive Kogge-Stone/Hillis-Steele prefix of the carry monoid
     (g, p) along the last axis: G_i = OR over j<=i of (g_j AND p_{j+1}
     .. p_i).  Hand-rolled doubling — log2(L) fused pad+elementwise
-    passes (jax.lax.associative_scan's gather-based lowering measured
-    ~1.3 ms per call at L=65536 on v5e)."""
+    passes instead of jax.lax.associative_scan's gather-based
+    lowering."""
     L = g.shape[-1]
     nd = g.ndim
     k = 1
@@ -336,175 +335,51 @@ def multiply_nr(ax, ay, adx, ady, spec: FixedSpec):
     return tuple(out)
 
 
-def _use_pallas(nf: int) -> bool:
-    """Route through the WHOLE-multiply single-kernel Pallas NTT
-    (ops/bignum/ntt_pallas.py) when enabled and the size fits its VMEM
-    window.  DECIDED OFF (VERDICT r1 weak #4): with the per-phase
-    sublane kernels + carry-lookahead in the default path, the A/B at
-    4096 limbs measures 0.257 (XLA+phase) vs 0.259 ms/iter
-    (whole-kernel), bit-identical orbits — no win, and the whole
-    kernel is capped at nfft 16384.  It stays as a tested differential
-    implementation (tests/test_ntt_iter_fused.py)."""
-    if not PALLAS_NTT:
-        return False
-    if jax.default_backend() != "tpu":
-        return False
-    from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-    return NP.supported(nf)
+def _iter_products(vx, vy, nf: int):
+    """[4, nf] inverse-transformed rows (x² − y², x·y) per prime from
+    zero-padded magnitudes: one [4]-row forward, the difference taken
+    in the frequency domain, one [4]-row scaled inverse."""
+    stacked = jnp.stack([vx, vx, vy, vy])
+    four_step = nf >= 8192
+    f = (N.fourstep_forward(stacked, nf) if four_step
+         else N.shoup_forward(stacked, nf))
+    p2c, pp2c = N._row_consts(2)
+    sq = N._mont_mul_rows(f, f, *N._row_consts(4))    # xx, yy
+    d = N._mod_sub_rows(sq[0:2], sq[2:4], p2c)
+    xy = N._mont_mul_rows(f[0:2], f[2:4], p2c, pp2c)
+    prod = jnp.concatenate([d, xy])                   # [4, n]
+    return (N.fourstep_inverse_scaled(prod, nf, extra_scale_r=True)
+            if four_step
+            else N.shoup_inverse_scaled(prod, nf, extra_scale_r=True))
 
 
-PALLAS_NTT: bool = False
+def _nr_iter_products(vals, signs, nf: int):
+    """[8, nf] rows (x² − y², x·y, x·dx − y·dy, x·dy + y·dx) per prime
+    from the padded magnitudes (x, y, dx, dy) and their signs, folded
+    into the spectra: NTT(−a) = p − NTT(a) pointwise."""
+    stacked = jnp.stack([v for v in vals for _ in range(2)])
+    four_step = nf >= 8192
+    f = (N.fourstep_forward(stacked, nf) if four_step
+         else N.shoup_forward(stacked, nf))
+    p8c, _ = N._row_consts(8)
+    # fold signs: rows 0,1 ← sx; 2,3 ← sy; 4,5 ← sdx; 6,7 ← sdy
+    sg = jnp.stack([s for s in signs for _ in range(2)])
+    fneg = jnp.where(f == 0, f, p8c - f)
+    f = jnp.where((sg < 0)[:, None], fneg, f)
+    p2c, pp2c = N._row_consts(2)
 
-# Split three-kernel Pallas pipeline (transpose-free rollstep) for
-# sizes beyond the whole-kernel VMEM window — DECIDED OFF, measured
-# A/B at 16384 limbs on the View #30 center (wall best-of-3/256-step
-# chunks, v5e): XLA four-step + fused tail 0.422 ms/iter vs split +
-# fused tail 0.452 (gridded form 0.470, pre-alignment 0.547).  The
-# XLA transposes cost less than assumed once the fused tail removed
-# the real bottleneck; the split stays as a tested differential
-# implementation (tests/test_ntt_iter_fused.py) like PALLAS_NTT.
-PALLAS_NTT_SPLIT: bool = False
+    def mul2(a2, b2):
+        return N._mont_mul_rows(a2, b2, p2c, pp2c)
 
-
-def _use_pallas_split(nf: int) -> bool:
-    if not PALLAS_NTT_SPLIT:
-        return False
-    if jax.default_backend() != "tpu":
-        return False
-    from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-    return NP.supported_split(nf)
-
-
-def _any_pallas(nf: int) -> bool:
-    return _use_pallas(nf) or _use_pallas_split(nf)
-
-
-# Fused CRT+carry tail (ntt_pallas.fused_tail): the whole digit-domain
-# tail — CRT reconstruction, signed stream accumulation, +c folding,
-# carry lookahead, signed finish — as ONE VMEM-resident kernel (the
-# XLA tail's ~25 Kogge-Stone HBM passes cost ~90 us/iter at 16384
-# limbs).  Requires the flat digit layout to coincide with the
-# transform layout: 2D == nfft (true for power-of-two limb counts).
-PALLAS_FUSED_TAIL: bool = True
-
-
-def _use_fused_tail(nf: int, D: int) -> bool:
-    if not PALLAS_FUSED_TAIL:
-        return False
-    if jax.default_backend() != "tpu":
-        return False
-    return 2 * D == nf and nf % 128 == 0 and nf >= 2048
-
-
-def _use_mxu_iter(nf: int) -> bool:
-    """Whole-iteration MXU frequency kernel (ntt_mxu.mxu_iter_products):
-    checked before the split-pipeline and XLA four-step routes."""
-    from fractalshark_tpu.ops.bignum import ntt_mxu as NM
-    return NM.use_iter_kernel(nf)
-
-
-# Paired-digit (base-2^32) iteration: the whole digit-domain pipeline
-# runs on PACKED u32 digit pairs — the product kernel absorbs the
-# even/odd deinterleave into host-split phase matrices and the fused
-# tail's carry machinery runs on half-width planes (the tail is
-# data-size-bound on the VPU; VERDICT r3 #5).  Bit-identical to the
-# unpaired route (tests/test_paired.py).
-PAIRED_ITER: bool = True
-
-
-def use_paired(spec: FixedSpec) -> bool:
-    if not PAIRED_ITER:
-        return False
-    if not _use_fused_tail(spec.nfft, spec.digits):
-        return False
-    if not _use_mxu_iter(spec.nfft):
-        return False
-    from fractalshark_tpu.ops.bignum import ntt_mxu as NM
-    return NM.paired_kernel_supported(spec.nfft, spec.digits)
-
-
-def pack_pairs(v):
-    """u32 digit vector [D] → packed base-2^32 pair vector [D/2]
-    (digit 2m in the low 16 bits of pair m).  Device-side; used once
-    per chunk at the scan boundary."""
-    a = v.reshape(-1, 2)
-    return a[:, 0] | (a[:, 1] << 16)
-
-
-def unpack_pairs(p, D: int):
-    """Inverse of pack_pairs (device-side)."""
-    return jnp.stack([p & jnp.uint32(0xFFFF), p >> 16],
-                     axis=1).reshape(D)
-
-
-def pack_pairs_np(v: np.ndarray) -> np.ndarray:
-    a = np.ascontiguousarray(v, np.uint32).reshape(-1, 2)
-    return a[:, 0] | (a[:, 1] << np.uint32(16))
-
-
-def unpack_pairs_np(p: np.ndarray) -> np.ndarray:
-    out = np.empty(p.shape[0] * 2, np.uint32)
-    out[0::2] = p & 0xFFFF
-    out[1::2] = p >> 16
-    return out
-
-
-def iterate_z_paired(sx, xp, sy, yp, scx, cxp, scy, cyp,
-                     spec: FixedSpec):
-    """iterate_z on PACKED digit pairs: state, c and the returned
-    magnitudes are all [D/2] u32 pair vectors (pack_pairs layout).
-    Bit-identical to iterate_z after unpack_pairs."""
-    from fractalshark_tpu.ops.bignum import ntt_mxu as NM
-    from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-    nf = spec.nfft
-    D = spec.digits
-    F = spec.frac_digits
-    interp = jax.default_backend() != "tpu"
-    inv = NM.mxu_iter_products_paired(xp, yp, n=nf, in_digits=D,
-                                      interpret=interp)
-    F2 = F // 2
-    D2 = D // 2
-    z = jnp.zeros((nf // 2,), jnp.uint32)
-    cfxp = z.at[F2:F2 + D2].set(cxp)
-    cfyp = z.at[F2:F2 + D2].set(cyp)
-    # round bit at digit F-1 (odd) = high half of pair F/2 - 1
-    rndp = z.at[F2 - 1].set(jnp.uint32(1 << 31))
-    sgs = jnp.stack([scx, scy, sx * sy,
-                     jnp.int32(0)]).astype(jnp.int32)
-    digp, sgn = NP.fused_tail_paired(
-        inv.reshape(2, 2, nf), jnp.stack([cfxp, cfyp]), rndp, sgs,
-        n=nf, interpret=interp)
-    return sgn[0], digp[0, F2:F2 + D2], sgn[1], digp[1, F2:F2 + D2]
-
-
-def iterate_z_nr_paired(sx, xp, sy, yp, sdx, dxp, sdy, dyp,
-                        scx, cxp, scy, cyp, spec: FixedSpec):
-    """iterate_z_nr on packed digit pairs (see iterate_z_paired)."""
-    from fractalshark_tpu.ops.bignum import ntt_mxu as NM
-    from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-    nf = spec.nfft
-    D = spec.digits
-    F = spec.frac_digits
-    interp = jax.default_backend() != "tpu"
-    inv = NM.mxu_nr_products_paired(
-        xp, yp, dxp, dyp,
-        jnp.stack([jnp.int32(sx), jnp.int32(sy),
-                   jnp.int32(sdx), jnp.int32(sdy)]),
-        n=nf, in_digits=D, interpret=interp)
-    F2 = F // 2
-    D2 = D // 2
-    z = jnp.zeros((nf // 2,), jnp.uint32)
-    cfxp = z.at[F2:F2 + D2].set(cxp)
-    cfyp = z.at[F2:F2 + D2].set(cyp)
-    onefp = z.at[F].set(jnp.uint32(1))      # digit 2F = pair F, low
-    rndp = z.at[F2 - 1].set(jnp.uint32(1 << 31))
-    sgs = jnp.stack([scx, scy, jnp.int32(0),
-                     jnp.int32(0)]).astype(jnp.int32)
-    digp, sgn = NP.fused_tail_paired(
-        inv.reshape(4, 2, nf), jnp.stack([cfxp, cfyp, onefp, z]),
-        rndp, sgs, n=nf, nr=True, interpret=interp)
-    return (sgn[0], digp[0, F2:F2 + D2], sgn[1], digp[1, F2:F2 + D2],
-            sgn[2], digp[2, F2:F2 + D2], sgn[3], digp[3, F2:F2 + D2])
+    fx, fy, fdx, fdy = f[0:2], f[2:4], f[4:6], f[6:8]
+    d = N._mod_sub_rows(mul2(fx, fx), mul2(fy, fy), p2c)
+    xy = mul2(fx, fy)
+    u = N._mod_sub_rows(mul2(fx, fdx), mul2(fy, fdy), p2c)
+    v = N._mod_add_rows(mul2(fx, fdy), mul2(fy, fdx), p2c)
+    prod = jnp.concatenate([d, xy, u, v])             # [8, n]
+    return (N.fourstep_inverse_scaled(prod, nf, extra_scale_r=True)
+            if four_step
+            else N.shoup_inverse_scaled(prod, nf, extra_scale_r=True))
 
 
 def multiply_iter(ax, ay, spec: FixedSpec):
@@ -522,34 +397,10 @@ def multiply_iter(ax, ay, spec: FixedSpec):
     nf = spec.nfft
     D = spec.digits
     pad = nf - D
-
     F = spec.frac_digits
-
-    if _use_mxu_iter(nf):
-        from fractalshark_tpu.ops.bignum import ntt_mxu as NM
-        inv = NM.mxu_iter_products(
-            ax, ay, n=nf, in_digits=D,
-            interpret=jax.default_backend() != "tpu")
-    elif _any_pallas(nf):
-        from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-        vx = jnp.concatenate([ax, jnp.zeros((pad,), jnp.uint32)])
-        vy = jnp.concatenate([ay, jnp.zeros((pad,), jnp.uint32)])
-        inv = NP.ntt_iter_products(vx, vy, nf)
-    else:
-        vx = jnp.concatenate([ax, jnp.zeros((pad,), jnp.uint32)])
-        vy = jnp.concatenate([ay, jnp.zeros((pad,), jnp.uint32)])
-        stacked = jnp.stack([vx, vx, vy, vy])
-        four_step = nf >= 8192
-        f = (N.fourstep_forward(stacked, nf) if four_step
-             else N.shoup_forward(stacked, nf))
-        p2c, pp2c = N._row_consts(2)
-        sq = N._mont_mul_rows(f, f, *N._row_consts(4))    # xx, yy
-        d = N._mod_sub_rows(sq[0:2], sq[2:4], p2c)
-        xy = N._mont_mul_rows(f[0:2], f[2:4], p2c, pp2c)
-        prod = jnp.concatenate([d, xy])                   # [4, n]
-        inv = (N.fourstep_inverse_scaled(prod, nf, extra_scale_r=True)
-               if four_step
-               else N.shoup_inverse_scaled(prod, nf, extra_scale_r=True))
+    vx = jnp.concatenate([ax, jnp.zeros((pad,), jnp.uint32)])
+    vy = jnp.concatenate([ay, jnp.zeros((pad,), jnp.uint32)])
+    inv = _iter_products(vx, vy, nf)
 
     sd, dd = _crt_to_digit_sums_signed(inv[0], inv[1],
                                        out_digits=2 * D,
@@ -647,89 +498,21 @@ def _finish_signed_rows(acc_p, acc_n, F: int, D: int, round_digit: int):
     return sign, mag[:, F:F + D]
 
 
-def iterate_z(sx, x, sy, y, scx, cx, scy, cy, spec: FixedSpec,
-              return_shadow: bool = False):
+def iterate_z(sx, x, sy, y, scx, cx, scy, cy, spec: FixedSpec):
     """ONE full z ← z² + c update on sign-magnitude digits:
     (nsx, nx, nsy, ny). Beyond multiply_iter's frequency-domain x²−y²,
     the +c adds and the ×2 of the imaginary part fold into the CRT
     accumulation — each component runs exactly one carry ripple and
     one signed subtract per iteration (the reference instead chains
-    separate grid-sync add passes, ``Add.cu``).
-
-    return_shadow (fused-tail path only): additionally return
-    (shw_x, shw_y) — [5] i32 top-digit shadow rows emitted from inside
-    the tail kernel (orbit._emit_shadow semantics), so the orbit scan
-    skips its per-iteration argmax/dynamic_slice glue."""
+    separate grid-sync add passes, ``Add.cu``)."""
     nf = spec.nfft
     D = spec.digits
     F = spec.frac_digits
     pad = nf - D
-    from fractalshark_tpu.ops.bignum import ntt_mxu as NM
-    full_fused = (NM.MXU_ITER_FULL and _use_mxu_iter(nf)
-                  and _use_fused_tail(nf, D))
-    if full_fused or _use_mxu_iter(nf):
-        vx = vy = None      # unpadded in_digits path — no pad concat
-    else:
-        vx = jnp.concatenate([x, jnp.zeros((pad,), jnp.uint32)])
-        vy = jnp.concatenate([y, jnp.zeros((pad,), jnp.uint32)])
-    if full_fused:
-        inv = None                        # single-kernel path below
-    elif _use_mxu_iter(nf):
-        inv = NM.mxu_iter_products(
-            x, y, n=nf, in_digits=D,
-            interpret=jax.default_backend() != "tpu")
-    elif _any_pallas(nf):
-        from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-        inv = NP.ntt_iter_products(vx, vy, nf)
-    else:
-        stacked = jnp.stack([vx, vx, vy, vy])
-        four_step = nf >= 8192
-        f = (N.fourstep_forward(stacked, nf) if four_step
-             else N.shoup_forward(stacked, nf))
-        p2c, pp2c = N._row_consts(2)
-        sq = N._mont_mul_rows(f, f, *N._row_consts(4))
-        d = N._mod_sub_rows(sq[0:2], sq[2:4], p2c)
-        xy = N._mont_mul_rows(f[0:2], f[2:4], p2c, pp2c)
-        prod = jnp.concatenate([d, xy])
-        inv = (N.fourstep_inverse_scaled(prod, nf, extra_scale_r=True)
-               if four_step
-               else N.shoup_inverse_scaled(prod, nf, extra_scale_r=True))
-
+    vx = jnp.concatenate([x, jnp.zeros((pad,), jnp.uint32)])
+    vy = jnp.concatenate([y, jnp.zeros((pad,), jnp.uint32)])
+    inv = _iter_products(vx, vy, nf)
     L = 2 * D
-    if _use_fused_tail(nf, D):
-        from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-        z = jnp.zeros((L,), jnp.uint32)
-        cfx = z.at[F:F + D].set(cx)
-        cfy = z.at[F:F + D].set(cy)
-        rnd = z.at[F - 1].set(jnp.uint32(1 << 15))
-        sgs = jnp.stack([scx, scy, sx * sy,
-                         jnp.int32(0)]).astype(jnp.int32)
-        if full_fused:
-            one = jnp.int32(1)
-            zero = jnp.int32(0)
-            cfg = jnp.stack([zero, one, sgs[0], zero,
-                             one, sgs[2], sgs[1], zero])
-            interp = jax.default_backend() != "tpu"
-            if return_shadow:
-                dig, sgn, shw = NM.mxu_iterate_full(
-                    x, y, jnp.stack([cfx, cfy]), rnd, cfg, n=nf,
-                    shadow_fd=(F, D), interpret=interp, in_digits=D)
-                return (sgn[0], dig[0, F:F + D], sgn[1],
-                        dig[1, F:F + D], (shw[0], shw[1]))
-            dig, sgn = NM.mxu_iterate_full(
-                x, y, jnp.stack([cfx, cfy]), rnd, cfg, n=nf,
-                interpret=interp, in_digits=D)
-            return sgn[0], dig[0, F:F + D], sgn[1], dig[1, F:F + D]
-        if return_shadow:
-            dig, sgn, shw = NP.fused_tail(
-                inv.reshape(2, 2, nf), jnp.stack([cfx, cfy]), rnd,
-                sgs, n=nf, shadow_fd=(F, D))
-            return (sgn[0], dig[0, F:F + D], sgn[1], dig[1, F:F + D],
-                    (shw[0], shw[1]))
-        dig, sgn = NP.fused_tail(inv.reshape(2, 2, nf),
-                                 jnp.stack([cfx, cfy]), rnd, sgs, n=nf)
-        return sgn[0], dig[0, F:F + D], sgn[1], dig[1, F:F + D]
-    assert not return_shadow, "shadow emission needs the fused tail"
     px, nx_ = _signed_streams(inv[0], inv[1], False, L)
     px, nx_ = _fold_addend(px, nx_, scx, cx, F)
     py, ny_ = _unsigned_stream(inv[2], inv[3], sx * sy, True, L)
@@ -754,61 +537,10 @@ def iterate_z_nr(sx, x, sy, y, sdx, dx, sdy, dy,
     def padv(v):
         return jnp.concatenate([v, jnp.zeros((pad,), jnp.uint32)])
 
-    if _use_mxu_iter(nf):
-        from fractalshark_tpu.ops.bignum import ntt_mxu as NM
-        inv = NM.mxu_nr_products(
-            x, y, dx, dy,
-            jnp.stack([jnp.int32(sx), jnp.int32(sy),
-                       jnp.int32(sdx), jnp.int32(sdy)]),
-            n=nf, in_digits=D,
-            interpret=jax.default_backend() != "tpu")
-    elif _any_pallas(nf):
-        from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-        inv = NP.ntt_nr_iter_products(
-            padv(x), padv(y), padv(dx), padv(dy),
-            jnp.stack([jnp.int32(sx), jnp.int32(sy),
-                       jnp.int32(sdx), jnp.int32(sdy)]), nf)
-    else:
-        stacked = jnp.stack([padv(x), padv(x), padv(y), padv(y),
-                             padv(dx), padv(dx), padv(dy), padv(dy)])
-        four_step = nf >= 8192
-        f = (N.fourstep_forward(stacked, nf) if four_step
-             else N.shoup_forward(stacked, nf))
-        p8c, _ = N._row_consts(8)
-        signs = jnp.stack([sx, sx, sy, sy, sdx, sdx, sdy, sdy])
-        fneg = jnp.where(f == 0, f, p8c - f)
-        f = jnp.where((signs < 0)[:, None], fneg, f)
-        p2c, pp2c = N._row_consts(2)
-
-        def mul2(a2, b2):
-            return N._mont_mul_rows(a2, b2, p2c, pp2c)
-
-        fx, fy, fdx, fdy = f[0:2], f[2:4], f[4:6], f[6:8]
-        d = N._mod_sub_rows(mul2(fx, fx), mul2(fy, fy), p2c)
-        xy = mul2(fx, fy)
-        u = N._mod_sub_rows(mul2(fx, fdx), mul2(fy, fdy), p2c)
-        v = N._mod_add_rows(mul2(fx, fdy), mul2(fy, fdx), p2c)
-        prod = jnp.concatenate([d, xy, u, v])
-        inv = (N.fourstep_inverse_scaled(prod, nf, extra_scale_r=True)
-               if four_step
-               else N.shoup_inverse_scaled(prod, nf,
-                                           extra_scale_r=True))
+    inv = _nr_iter_products(
+        [padv(x), padv(y), padv(dx), padv(dy)], [sx, sy, sdx, sdy], nf)
 
     L = 2 * D
-    if _use_fused_tail(nf, D):
-        from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-        z = jnp.zeros((L,), jnp.uint32)
-        cfx = z.at[F:F + D].set(cx)
-        cfy = z.at[F:F + D].set(cy)
-        onef = z.at[2 * F].set(jnp.uint32(1))
-        rnd = z.at[F - 1].set(jnp.uint32(1 << 15))
-        sgs = jnp.stack([scx, scy, jnp.int32(0),
-                         jnp.int32(0)]).astype(jnp.int32)
-        dig, sgn = NP.fused_tail(inv.reshape(4, 2, nf),
-                                 jnp.stack([cfx, cfy, onef, z]),
-                                 rnd, sgs, n=nf, nr=True)
-        return (sgn[0], dig[0, F:F + D], sgn[1], dig[1, F:F + D],
-                sgn[2], dig[2, F:F + D], sgn[3], dig[3, F:F + D])
     one = jnp.ones((1,), jnp.uint32)
     # z real: d + cx ; z imag: 2·xy + cy (xy row is spectrum-signed);
     # dzdc real: 2·u + 1 ; dzdc imag: 2·v — all four streams finish in
@@ -851,38 +583,8 @@ def multiply_nr_iter(sx, ax, sy, ay, sdx, adx, sdy, ady,
         return jnp.concatenate([v, jnp.zeros((pad,), jnp.uint32)])
 
     F = spec.frac_digits
-    if _any_pallas(nf):
-        from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-        inv = NP.ntt_nr_iter_products(
-            padv(ax), padv(ay), padv(adx), padv(ady),
-            jnp.stack([jnp.int32(sx), jnp.int32(sy),
-                       jnp.int32(sdx), jnp.int32(sdy)]), nf)
-    else:
-        stacked = jnp.stack([padv(ax), padv(ax), padv(ay), padv(ay),
-                             padv(adx), padv(adx), padv(ady), padv(ady)])
-        four_step = nf >= 8192
-        f = (N.fourstep_forward(stacked, nf) if four_step
-             else N.shoup_forward(stacked, nf))
-        p8c, _ = N._row_consts(8)
-        # fold signs: rows 0,1 ← sx; 2,3 ← sy; 4,5 ← sdx; 6,7 ← sdy
-        signs = jnp.stack([sx, sx, sy, sy, sdx, sdx, sdy, sdy])
-        fneg = jnp.where(f == 0, f, p8c - f)
-        f = jnp.where((signs < 0)[:, None], fneg, f)
-        p2c, pp2c = N._row_consts(2)
-
-        def mul2(a2, b2):
-            return N._mont_mul_rows(a2, b2, p2c, pp2c)
-
-        fx, fy, fdx, fdy = f[0:2], f[2:4], f[4:6], f[6:8]
-        d = N._mod_sub_rows(mul2(fx, fx), mul2(fy, fy), p2c)
-        xy = mul2(fx, fy)
-        u = N._mod_sub_rows(mul2(fx, fdx), mul2(fy, fdy), p2c)
-        v = N._mod_add_rows(mul2(fx, fdy), mul2(fy, fdx), p2c)
-        prod = jnp.concatenate([d, xy, u, v])             # [8, n]
-        inv = (N.fourstep_inverse_scaled(prod, nf, extra_scale_r=True)
-               if four_step
-               else N.shoup_inverse_scaled(prod, nf,
-                                           extra_scale_r=True))
+    inv = _nr_iter_products(
+        [padv(ax), padv(ay), padv(adx), padv(ady)], [sx, sy, sdx, sdy], nf)
 
     out = []
     for k in range(4):
@@ -912,10 +614,8 @@ def multiply_3way(ax, ay, spec: FixedSpec):
     # Plain-domain Shoup transforms (6 mults/butterfly); the pointwise
     # Montgomery REDC's R^-1 is cancelled in the inverse's scaling.
     stacked = jnp.stack([v, v, w, w])
-    # four-step wins once the flat form's sub-lane stages dominate;
-    # below that the two transposes cost more than they save
-    # (measured on v5e: flat 1.97 ms vs four-step 1.74 ms at 16384,
-    # 1.51 vs 1.32 at 8192, 1.35 vs 1.40 at 4096)
+    # four-step from nfft 8192 up, the flat form below (crossover not
+    # measured on the H100)
     four_step = nf >= 8192
     f = (N.fourstep_forward(stacked, nf) if four_step
          else N.shoup_forward(stacked, nf))

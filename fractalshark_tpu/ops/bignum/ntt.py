@@ -1,17 +1,17 @@
 """Number-theoretic transform over two 31-bit primes, uint32-only.
 
-TPU-native counterpart of the reference NTT engine
+Counterpart of the reference NTT engine
 (``HpSharkFloatLib/MultiplyNTT.cu``, plan builder
 ``MultiplyNTTPlanBuilder.h:50-110``, Montgomery core
 ``MontgomeryCoreConstexpr.h``). Differences by design:
 
-* the reference uses ONE 64-bit prime; TPU has no 64-bit integer
-  multiply, so we use TWO 31-bit NTT primes + CRT — all arithmetic
-  decomposes into exact u32/16-bit-half operations (u32.py);
+* the reference uses ONE 64-bit prime; here TWO 31-bit NTT primes +
+  CRT, so all arithmetic decomposes into exact u32/16-bit-half
+  operations (u32.py);
 * transforms are iterative radix-2 Cooley–Tukey expressed as whole-array
   reshapes/butterflies — each stage is a handful of elementwise vector
-  ops over the full coefficient array, which XLA maps onto the VPU
-  (the reference instead hand-schedules shared-memory tiles);
+  ops over the full coefficient array, which XLA fuses into
+  elementwise kernels (the reference instead hand-schedules shared-memory tiles);
 * Montgomery domain (R = 2^32) throughout; root tables are precomputed
   host-side with Python ints and shipped as constants.
 
@@ -26,7 +26,6 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -149,7 +148,7 @@ def _dif_forward(x, tw, p: int):
 
     Stage s ∈ [0, stages): blocks of bs = n>>s, halves hm = bs/2,
     butterfly (a, b) → (a+b, (a−b)·w^(k·2^s)).
-    Each stage is a reshape + elementwise vector math — VPU-friendly.
+    Each stage is a reshape + elementwise vector math.
     """
     pprime, _, _ = _MONT[p]
     n = x.shape[-1]
@@ -209,9 +208,9 @@ def ntt_inverse(x, plan: NTTPlan, prime_idx: int):
 
 # ----------------------------------------------- prime-batched transforms
 # All rows transform in ONE whole-array pass: row r uses prime r % 2.
-# Per-prime constants broadcast as [R, 1] columns — one VPU sweep covers
-# both residue systems (and, for the inverse, all three products), which
-# is how the TPU wants this workload batched.
+# Per-prime constants broadcast as [R, 1] columns — one elementwise pass
+# covers both residue systems (and, for the inverse, all three
+# products).
 
 
 def _row_consts(rows: int):
@@ -422,10 +421,9 @@ def shoup_inverse_scaled(x, n: int, extra_scale_r: bool = True):
 # ------------------------------------------------- four-step transforms
 # Bailey's four-step factorization n = n1·n2: two batches of SHORT
 # axis-0 transforms around a twiddle-matrix multiply and a transpose.
-# On TPU this is the decisive layout: every butterfly pairs SUBLANES of
-# [.., n1, n2] arrays (the 128-lane minor dim is never subdivided), so
-# all stage reshapes are free leading-dim views — unlike the flat
-# radix-2 form whose last 7 stages shuffle within lanes.
+# Every butterfly pairs rows of [.., n1, n2] arrays (the minor dim is
+# never subdivided), so all stage reshapes are free leading-dim views —
+# unlike the flat radix-2 form whose last stages shuffle within rows.
 # Output order is "scrambled" (bit-reversed k1/k2, transposed), which
 # the convolution's pointwise product doesn't care about as long as the
 # inverse mirrors the exact chain.
@@ -513,88 +511,6 @@ def _fourstep_consts(n: int, rows: int):
     }
 
 
-# Fused multi-stage butterflies: the stage passes of the four-step's
-# inner transforms are OVERHEAD-bound on TPU (a [4, 65536] u32 stage is
-# ~1 MB of work against ~25 us of fixed per-pass cost; measured per-iter
-# time grows only 1.3x for 4x the data).  Fusing FUSE_LOG radix-2 stages
-# into one pass keeps the intermediate butterfly DAG in registers: the
-# pass works on 2^k array slices with host-sliced twiddle vectors and
-# restacks once, so XLA emits a single fused kernel per group of k
-# stages (the mult count is unchanged — in an NTT the quarter-root
-# multiply is a full modmul, unlike the complex-FFT's free ±i — the win
-# is pass count: 8 stage passes per 256-point transform become 2).
-
-FUSE_LOG = 2
-
-
-def _axis0_dif_fused(y, tws, p_col, fuse_log: int = None):
-    """DIF over axis 1 of [R, m, n2], fusing groups of radix-2 stages.
-    Bit-identical to _axis0_dif (same butterfly order and twiddles)."""
-    if fuse_log is None:
-        fuse_log = FUSE_LOG
-    rows, m, lanes = y.shape
-    stages = m.bit_length() - 1
-    pc4 = p_col[:, :, None, None]
-    s = 0
-    while s < stages:
-        k = min(fuse_log, stages - s)
-        q = m >> (s + k)
-        yv = y.reshape(rows, 1 << s, 1 << k, q, lanes)
-        parts = [yv[:, :, t] for t in range(1 << k)]
-        for d in range(k):
-            half = 1 << (k - 1 - d)
-            w_np, wp_np = tws[s + d]          # [R, hm] host numpy
-            for blk in range(1 << d):
-                for t_low in range(half):
-                    t0 = blk * 2 * half + t_low
-                    t1 = t0 + half
-                    sl = slice(t_low * q, (t_low + 1) * q)
-                    w = jnp.asarray(w_np[:, sl])[:, None, :, None]
-                    wp = jnp.asarray(wp_np[:, sl])[:, None, :, None]
-                    a = parts[t0]
-                    b = parts[t1]
-                    parts[t0] = _mod_add_rows(a, b, pc4)
-                    parts[t1] = _shoup_mul(_mod_sub_rows(a, b, pc4),
-                                           w, wp, pc4)
-        y = jnp.stack(parts, axis=2).reshape(rows, m, lanes)
-        s += k
-    return y
-
-
-def _axis0_dit_fused(y, tws, p_col, fuse_log: int = None):
-    """DIT over axis 1 of [R, m, n2], fused; bit-identical to
-    _axis0_dit."""
-    if fuse_log is None:
-        fuse_log = FUSE_LOG
-    rows, m, lanes = y.shape
-    stages = m.bit_length() - 1
-    pc4 = p_col[:, :, None, None]
-    s = 0
-    while s < stages:
-        k = min(fuse_log, stages - s)
-        q = 1 << s
-        yv = y.reshape(rows, m >> (s + k), 1 << k, q, lanes)
-        parts = [yv[:, :, t] for t in range(1 << k)]
-        for d in range(k):
-            half = 1 << d
-            w_np, wp_np = tws[s + d]
-            for blk in range(1 << (k - 1 - d)):
-                for t_low in range(half):
-                    t0 = blk * 2 * half + t_low
-                    t1 = t0 + half
-                    sl = slice(t_low * q, (t_low + 1) * q)
-                    w = jnp.asarray(w_np[:, sl])[:, None, :, None]
-                    wp = jnp.asarray(wp_np[:, sl])[:, None, :, None]
-                    a = parts[t0]
-                    b = parts[t1]
-                    u = _shoup_mul(b, w, wp, pc4)
-                    parts[t0] = _mod_add_rows(a, u, pc4)
-                    parts[t1] = _mod_sub_rows(a, u, pc4)
-        y = jnp.stack(parts, axis=2).reshape(rows, m, lanes)
-        s += k
-    return y
-
-
 def _axis0_dif(y, tws, p_col):
     """DIF over axis 1 of [R, m, n2] (natural → bit-reversed rows)."""
     rows, m, lanes = y.shape
@@ -632,49 +548,6 @@ def _axis0_dit(y, tws, p_col):
     return y
 
 
-def _use_phase_pallas(m: int, lanes: int) -> bool:
-    """Pallas per-phase sublane transforms: all log2(m) stages of a
-    four-step phase in one VMEM-resident kernel (the XLA stage passes
-    are overhead/HBM-bound at large n).  Requires 128-divisible lanes —
-    narrower blocks (e.g. per-device shards of a small transform) would
-    relayout-pad inside Mosaic."""
-    return (jax.default_backend() == "tpu" and m >= 64
-            and (m & (m - 1)) == 0 and lanes % 128 == 0)
-
-
-def _use_phase_mxu(m: int, rows: int) -> bool:
-    """MXU matmul phase transforms (ntt_mxu.mxu_transform): the short
-    transform as chunked int8 matmuls on the systolic array.  Checked
-    FIRST — when enabled it displaces both the Pallas sublane kernels
-    and the XLA stage passes (bit-identical outputs all three ways)."""
-    from fractalshark_tpu.ops.bignum import ntt_mxu as NM
-    if not NM.NTT_MXU:
-        return False
-    if NM.NTT_MXU != "force" and jax.default_backend() != "tpu":
-        return False    # CPU/test default: XLA stage passes
-    return NM.supported(m, rows)
-
-
-def _phase_dif(y, tws, p_col, m: int):
-    if _use_phase_mxu(m, y.shape[0]):
-        from fractalshark_tpu.ops.bignum import ntt_mxu as NM
-        return NM.mxu_transform(y, m=m, inverse=False)
-    if _use_phase_pallas(m, y.shape[-1]):
-        from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-        return NP.sublane_transform(y, m=m, inverse=False)
-    return _axis0_dif(y, tws, p_col)
-
-
-def _phase_dit(y, tws, p_col, m: int):
-    if _use_phase_mxu(m, y.shape[0]):
-        from fractalshark_tpu.ops.bignum import ntt_mxu as NM
-        return NM.mxu_transform(y, m=m, inverse=True)
-    if _use_phase_pallas(m, y.shape[-1]):
-        from fractalshark_tpu.ops.bignum import ntt_pallas as NP
-        return NP.sublane_transform(y, m=m, inverse=True)
-    return _axis0_dit(y, tws, p_col)
-
-
 def fourstep_forward(x, n: int):
     """Plain-domain four-step forward: [R, n] → scrambled spectra
     [R, n] (internally [R, n2, n1])."""
@@ -683,12 +556,12 @@ def fourstep_forward(x, n: int):
     n1, n2 = c["n1"], c["n2"]
     p_col, _ = _row_consts(rows)
     a = x.reshape(rows, n1, n2)
-    b = _phase_dif(a, c["tw1_f"], p_col, n1)
+    b = _axis0_dif(a, c["tw1_f"], p_col)
     t1, t1p = c["t1"]
     b = _shoup_mul(b, jnp.asarray(t1), jnp.asarray(t1p),
                    p_col[:, :, None])
     bt = jnp.transpose(b, (0, 2, 1))          # [R, n2, n1]
-    e = _phase_dif(bt, c["tw2_f"], p_col, n2)
+    e = _axis0_dif(bt, c["tw2_f"], p_col)
     return e.reshape(rows, n)
 
 
@@ -699,12 +572,12 @@ def fourstep_inverse_scaled(x, n: int, extra_scale_r: bool = True):
     n1, n2 = c["n1"], c["n2"]
     p_col, _ = _row_consts(rows)
     e = x.reshape(rows, n2, n1)
-    bt = _phase_dit(e, c["tw2_i"], p_col, n2)
+    bt = _axis0_dit(e, c["tw2_i"], p_col)
     b = jnp.transpose(bt, (0, 2, 1))          # [R, n1, n2]
     t1i, t1ip = c["t1i"]
     b = _shoup_mul(b, jnp.asarray(t1i), jnp.asarray(t1ip),
                    p_col[:, :, None])
-    a = _phase_dit(b, c["tw1_i"], p_col, n1)
+    a = _axis0_dit(b, c["tw1_i"], p_col)
     y = a.reshape(rows, n)
     sc = np.empty((rows, 1), np.uint32)
     scp = np.empty((rows, 1), np.uint32)

@@ -1,13 +1,13 @@
-"""32-bit-only integer primitives for TPU.
+"""32-bit-only integer primitives.
 
-TPU vector units have no native 64-bit integer multiply; the reference's
-GPU bignum leans on 64-bit Montgomery arithmetic
+The NTT arithmetic is written without 64-bit integer multiplies; the
+reference's GPU bignum leans on 64-bit Montgomery arithmetic
 (``HpSharkFloatLib/MontgomeryCoreConstexpr.h``). Here every 64-bit
 quantity is an explicit (hi, lo) pair of uint32, and the 32×32→64
 product is composed from 16-bit halves — exact under uint32 wraparound
 semantics.
 
-All functions are elementwise over arrays and safe inside jit/Pallas.
+All functions are elementwise over arrays and safe inside jit.
 """
 
 from __future__ import annotations

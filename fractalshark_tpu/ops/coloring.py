@@ -8,7 +8,7 @@ Device-side equivalents of the reference kernels:
   black; alpha = 65535.
 * ``ReductionKernels.cuh``: Min/Max/Sum of iteration counts (here plain
   jnp reductions — XLA emits the optimal tree; under shard_map these
-  become psum/pmin/pmax over ICI).
+  become psum/pmin/pmax collectives).
 """
 
 from __future__ import annotations
@@ -30,10 +30,9 @@ def color_from_iters(iters, palette, n_iterations, aux_depth, antialiasing=1):
     num_colors = palette.shape[0]
     idx = (iters >> aux_depth.astype(iters.dtype)) % jnp.asarray(
         num_colors, iters.dtype)
-    # NOTE: an unrolled 256-way select ladder was tried here for the
-    # TPU (per-pixel gather is latency-bound, ~30 ms kernel-side at
-    # 4096²): kernel time dropped ~2.5x but compile time of the fused
-    # render exploded (>9 min) — rejected; the gather stays.
+    # NOTE: an unrolled 256-way select ladder in place of this gather
+    # was tried on an earlier accelerator and rejected for its compile
+    # time; not measured on the H100.
     rgb = palette[idx.astype(jnp.int32)]  # [Haa, Waa, 3]
     interior = (iters >= n_iterations.astype(iters.dtype))[..., None]
     rgb = jnp.where(interior, jnp.zeros_like(rgb), rgb)

@@ -1,16 +1,17 @@
 """Double-float ("2x32"/"2x64") arithmetic: an unevaluated sum of two
 native floats giving ~2× the mantissa bits.
 
-TPU-native re-design of the reference's CUDA float-float types
+Re-design of the reference's CUDA float-float types
 (``HpSharkFloatLib/CudaDblflt.h``, ``dblflt.cuh``, ``dbldbl.cuh``):
-on f32-native hardware a (hi, lo) f32 pair gives ~48 mantissa bits —
-the role dblflt plays on fp32 CUDA ALUs.  Algorithms are the classical
-error-free transformations (Dekker two-prod via splitting, Knuth
-two-sum), valid under IEEE round-to-nearest; products of split halves
-are exact, so XLA op fusion cannot change results.
+a (hi, lo) f32 pair gives ~48 mantissa bits at f32 throughput.
+Algorithms are the classical error-free transformations (Dekker
+two-prod via splitting, Knuth two-sum), valid under IEEE
+round-to-nearest.  The split works on the bit pattern, so its halves
+are exact whether or not the compiler contracts a multiply and an add
+into one FMA (XLA's GPU and CPU backends both may); products of the
+halves are then exact, and contraction cannot change results.
 
-Works elementwise over arrays, at JAX level and inside Pallas kernels
-(f32 only uses +,-,* — all Mosaic-legal).
+Works elementwise over arrays.
 """
 
 from __future__ import annotations
@@ -32,12 +33,6 @@ class DF(NamedTuple):
     lo: jax.Array
 
 
-def _split_const(dtype):
-    # Dekker splitter: 2^ceil(p/2)+1 (p = mantissa bits incl. hidden)
-    return jnp.asarray(4097.0 if jnp.dtype(dtype) == jnp.float32
-                       else 134217729.0, dtype)
-
-
 def two_sum(a, b):
     s = a + b
     bb = s - a
@@ -53,8 +48,19 @@ def quick_two_sum(a, b):
 
 
 def split(a):
-    c = _split_const(a.dtype) * a
-    hi = c - (c - a)
+    """a = hi + lo exactly, hi the significand rounded to its top 12 of
+    24 bits (f32) or 26 of 53 (f64), lo ≤ that many bits with its sign.
+    Dekker's ``c - (c - 4097·a)`` form breaks when ``4097·a - a`` is
+    contracted into an FMA; rounding on the bit pattern cannot be."""
+    if a.dtype == jnp.float32:
+        ity, drop = jnp.uint32, 12
+    else:
+        ity, drop = jnp.uint64, 27
+    bits = jax.lax.bitcast_convert_type(a, ity)
+    mask = np.array(~((1 << drop) - 1) & (2 ** (8 * bits.dtype.itemsize)
+                                          - 1), bits.dtype)
+    half = np.array(1 << (drop - 1), bits.dtype)
+    hi = jax.lax.bitcast_convert_type((bits + half) & mask, a.dtype)
     return hi, a - hi
 
 
@@ -194,12 +200,11 @@ def _escape_df_impl(scal, max_iter, width, height, dtype):
 
 
 def escape_df(params_or_ptz, width: int, height: int, max_iter: int,
-              variant: str = "2x32", backend: str | None = None):
+              variant: str = "2x32"):
     """Plain escape render in double-float arithmetic.
 
-    variant: "2x32" (f32 pairs, TPU-native ~48-bit) or "2x64"
-    (f64 pairs, CPU, ~106-bit). The 4x variants (quad) are not yet
-    implemented.
+    variant: "2x32" (f32 pairs, ~48-bit) or "2x64" (f64 pairs,
+    ~106-bit); the 4x variants live in ops/quadd.py.
     """
     if variant in ("4x32", "4x64"):
         raise NotImplementedError(

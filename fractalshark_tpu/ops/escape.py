@@ -14,16 +14,10 @@ Semantics match the reference CPU loop (``Fractal.cpp:2139-2183``,
 Pixel coordinates: cx = minX + x*dx, cy = maxY - y*dy with
 dx = (maxX-minX)/(W*aa), dy = (maxY-minY)/(H*aa)  (Fractal.cpp:2119-2152).
 
-Two implementations:
-
-* ``escape_jax`` — whole-image lockstep masked iteration (works on any
-  backend; used for f64 golden tests on CPU and as the f64 path on TPU).
-* ``escape_pallas`` — tiled Pallas TPU kernel; coordinates are generated
-  *inside* the kernel from SMEM scalars (zero HBM input traffic), each
-  tile exits as soon as all of its pixels have resolved.
-
-The iteration grid is never data-dependently shaped: tiles are static,
-exit is via masked ``while_loop`` (compare SURVEY.md §7 hard part (c)).
+``escape_jax`` is a whole-image lockstep masked iteration in any float
+dtype: XLA fuses the chunked update into one elementwise kernel.  The
+iteration grid is never data-dependently shaped: exit is via a masked
+``while_loop`` (compare SURVEY.md §7 hard part (c)).
 """
 
 from __future__ import annotations
@@ -33,16 +27,11 @@ from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
 
 # Iterations per masked chunk between "all done?" re-checks.
 _INNER_STEPS = 8
-
-TILE_H = 256
-TILE_W = 256
 
 
 @dataclass(frozen=True)
@@ -71,7 +60,7 @@ def _iter_dtype(max_iter: int):
 
 
 # --------------------------------------------------------------------------
-# Pure-JAX lockstep implementation (any backend, any dtype incl. f64)
+# Lockstep implementation (any backend, any dtype incl. f64)
 # --------------------------------------------------------------------------
 
 
@@ -134,196 +123,3 @@ def escape_jax(params: PlainParams, width: int, height: int, max_iter: int,
         jnp.asarray(max_iter, iter_dtype),
         jnp.asarray(escape_radius_sq, dtype),
         width, height, dtype, iter_dtype, y0=y0)
-
-
-# --------------------------------------------------------------------------
-# Pallas TPU kernel
-# --------------------------------------------------------------------------
-
-
-def _escape_tile(min_x, max_y, dx, dy, max_iter, ti, tj, *,
-                 tile_h, tile_w, dtype):
-    """Iterate one (tile_h, tile_w) tile to resolution; returns the
-    uint32 iteration counts.
-
-    Iteration body is selectless: once a pixel escapes, z diverges
-    monotonically (|z²+c| ≥ |z|²−|c| > |z| for |z|>2, |c|≤2) through
-    inf to nan, so the `|z|² ≤ 4` count predicate is false forever and
-    the counter freezes without any masking of z. Pixels inside the
-    period-1 cardioid / period-2 bulb are resolved analytically at init
-    (they provably never escape → iters = max_iter, bit-identical to
-    iterating them) by poisoning z with inf and pre-setting the counter.
-    """
-    row0 = (ti * tile_h).astype(dtype)
-    col0 = (tj * tile_w).astype(dtype)
-    rows = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 0).astype(dtype)
-    cols = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1).astype(dtype)
-    cx = min_x + (col0 + cols) * dx
-    cy = max_y - (row0 + rows) * dy
-
-    four = jnp.asarray(4.0, dtype)
-
-    # Analytic interior membership (main cardioid + period-2 bulb):
-    # q = (x-1/4)² + y²; q·(q + (x-1/4)) ≤ y²/4  ∨  (x+1)² + y² ≤ 1/16.
-    xq = cx - jnp.asarray(0.25, dtype)
-    cy2 = cy * cy
-    q = xq * xq + cy2
-    interior = (q * (q + xq) <= jnp.asarray(0.25, dtype) * cy2) | \
-        ((cx + jnp.asarray(1.0, dtype)) ** 2 + cy2 <=
-         jnp.asarray(0.0625, dtype))
-    inf = jnp.asarray(jnp.inf, dtype)
-    zx0 = jnp.where(interior, inf, cx)
-    # explicit i32 zero: a python-int literal traces as weak i64 under
-    # jax_enable_x64 and its convert recurses forever in Mosaic lowering
-    it0 = jnp.where(interior, max_iter, jnp.int32(0))
-
-    # No boolean mask in the carry (bool vector carries fail to legalize
-    # in Mosaic): a pixel is live iff its counter equals the global step
-    # count k — `it` only advances while the pixel is live.
-    def cond(state):
-        k, _, _, it = state
-        live = (it == k).astype(jnp.int32)
-        return jnp.logical_and(k < max_iter, jnp.max(live) > 0)
-
-    def body(state):
-        def step(_, s):
-            k, zx, zy, it = s
-            zx2 = zx * zx
-            zy2 = zy * zy
-            it = it + ((zx2 + zy2) <= four).astype(jnp.int32)
-            nzy = (zx + zx) * zy + cy
-            zx = zx2 - zy2 + cx
-            return k + 1, zx, nzy, it
-
-        # int32 loop bounds: under jax_enable_x64 a default (python-int)
-        # fori counter traces as i64, which Mosaic cannot legalize.
-        return jax.lax.fori_loop(jnp.int32(0), jnp.int32(_INNER_STEPS),
-                                 step, state)
-
-    k, _, _, iters = jax.lax.while_loop(
-        cond, body, (jnp.int32(0), zx0, cy, it0))
-    # the body runs in _INNER_STEPS chunks, so never-escaping pixels can
-    # overshoot a non-multiple-of-chunk budget by up to chunk-1; the
-    # clamp enforces the exact cap
-    return jnp.minimum(iters, max_iter).astype(jnp.uint32)
-
-
-def _escape_kernel(scalar_ref, out_ref, *, tile_h, tile_w, dtype):
-    """One (tile_h, tile_w) tile. scalar_ref (SMEM, f32/f64[5]):
-    [min_x, max_y, dx, dy, max_iter]."""
-    out_ref[:] = _escape_tile(
-        scalar_ref[0], scalar_ref[1], scalar_ref[2], scalar_ref[3],
-        scalar_ref[4].astype(jnp.int32), pl.program_id(0), pl.program_id(1),
-        tile_h=tile_h, tile_w=tile_w, dtype=dtype)
-
-
-def _escape_seq_kernel(scalar_ref, out_ref, *, tile_h, tile_w, dtype):
-    """Frame k of a multi-frame sequence: scalar_ref (SMEM, (K,5)) holds
-    every frame's [min_x, max_y, dx, dy, max_iter]; grid (K, gh, gw).
-    The whole table rides in SMEM (scalar loads may be dynamically
-    indexed there, unlike vector memory)."""
-    k = pl.program_id(0)
-    out_ref[0, :, :] = _escape_tile(
-        scalar_ref[k, 0], scalar_ref[k, 1], scalar_ref[k, 2],
-        scalar_ref[k, 3], scalar_ref[k, 4].astype(jnp.int32),
-        pl.program_id(1), pl.program_id(2),
-        tile_h=tile_h, tile_w=tile_w, dtype=dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("width", "height", "dtype", "tile_h", "tile_w", "interpret"))
-def _escape_pallas_impl(scalars, width, height, dtype,
-                        tile_h, tile_w, interpret):
-    grid = (pl.cdiv(height, tile_h), pl.cdiv(width, tile_w))
-    kernel = functools.partial(
-        _escape_kernel, tile_h=tile_h, tile_w=tile_w, dtype=dtype)
-    padded_h = grid[0] * tile_h
-    padded_w = grid[1] * tile_w
-    # NB: every BlockSpec needs an explicit index map — under
-    # jax_enable_x64 the auto-generated default map returns i64 indices,
-    # which Mosaic fails to legalize.
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[pl.BlockSpec((5,), lambda i, j: (jnp.int32(0),),
-                               memory_space=pltpu.SMEM)],
-        out_specs=pl.BlockSpec(
-            (tile_h, tile_w),
-            lambda i, j: (i, j),
-            memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((padded_h, padded_w), jnp.uint32),
-        interpret=interpret,
-    )(scalars)
-    return out[:height, :width]
-
-
-def escape_pallas(params: PlainParams, width: int, height: int,
-                  max_iter: int, dtype=jnp.float32,
-                  tile_h: int = TILE_H, tile_w: int = TILE_W,
-                  interpret: bool = False):
-    """Tiled Pallas escape kernel (f32 on TPU; f64 via interpret on CPU).
-
-    max_iter must fit int32 for this path; deeper budgets use the
-    perturbation/LA renderers where per-pixel counts stay small.
-    """
-    if max_iter >= (1 << 31):
-        raise ValueError("escape_pallas supports max_iter < 2^31")
-    dtype = jnp.dtype(dtype)
-    scalars = jnp.array(
-        [params.min_x, params.max_y, params.dx, params.dy, float(max_iter)],
-        dtype=dtype)
-    out = _escape_pallas_impl(scalars, width, height, dtype,
-                              tile_h, tile_w, interpret)
-    return out
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("width", "height", "dtype", "tile_h", "tile_w",
-                     "interpret"))
-def _escape_seq_impl(scalars, width, height, dtype, tile_h, tile_w,
-                     interpret):
-    n_frames = scalars.shape[0]
-    grid = (n_frames, pl.cdiv(height, tile_h), pl.cdiv(width, tile_w))
-    kernel = functools.partial(
-        _escape_seq_kernel, tile_h=tile_h, tile_w=tile_w, dtype=dtype)
-    padded_h = grid[1] * tile_h
-    padded_w = grid[2] * tile_w
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[pl.BlockSpec(
-            (n_frames, 5), lambda k, i, j: (jnp.int32(0), jnp.int32(0)),
-            memory_space=pltpu.SMEM)],
-        out_specs=pl.BlockSpec(
-            (1, tile_h, tile_w),
-            lambda k, i, j: (k, i, j),
-            memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(
-            (n_frames, padded_h, padded_w), jnp.uint32),
-        interpret=interpret,
-    )(scalars)
-    return out[:, :height, :width]
-
-
-def escape_pallas_sequence(params_seq, width: int, height: int,
-                           max_iter: int, dtype=jnp.float32,
-                           tile_h: int = TILE_H, tile_w: int = TILE_W,
-                           interpret: bool = False):
-    """Render a whole frame sequence (zoom animation, AA passes, tray
-    queue) in ONE device program: the per-dispatch launch overhead —
-    which dominates a single shallow frame — is paid once for K frames.
-    This is the TPU answer to the reference's dual-stream renderer
-    pipelining (FractalSharkGpuLib render streams): instead of
-    overlapping two async streams, batch the frame loop into the kernel
-    grid's leading dimension.
-    """
-    if max_iter >= (1 << 31):
-        raise ValueError("escape_pallas_sequence supports max_iter < 2^31")
-    dtype = jnp.dtype(dtype)
-    scalars = jnp.array(
-        [[p.min_x, p.max_y, p.dx, p.dy, float(max_iter)]
-         for p in params_seq], dtype=dtype)
-    return _escape_seq_impl(scalars, width, height, dtype,
-                            tile_h, tile_w, interpret)

@@ -1,6 +1,6 @@
 """HDR double-float ("HDRx2x32"): HDR exponent over a 2x32 mantissa.
 
-TPU-native counterpart of the reference's ``HDRFloat<CudaDblflt>``
+Counterpart of the reference's ``HDRFloat<CudaDblflt>``
 renderer family (``HpSharkFloatLib/HDRFloat.h:84`` instantiated over
 ``CudaDblflt.h``; kernels ``GPU_Render.cu`` HDRx2x32 variants): each
 complex value carries double-float (hi, lo) f32 mantissa pairs

@@ -1,5 +1,5 @@
 """Plain escape-time rendering in HDR arithmetic (CpuHDR32 / CpuHDR64 /
-TpuHDRx32 algorithm families).
+GpuHDRx32 algorithm families).
 
 Same iteration semantics as the f64 path (``Fractal.cpp:2139-2183``) but
 with HDRFloat operands and the reference's HdrReduce placement: reduce
@@ -48,8 +48,7 @@ def hdr_escape_tile(cx: HDR, cy: HDR, max_iter, iter_dtype=jnp.uint32):
     """Masked lockstep escape iteration over one array of HDR pixel
     coordinates. Returns iteration counts.
 
-    Liveness is counter-derived (it == k) — no boolean carry, so the
-    same function lowers through Mosaic inside Pallas kernels.
+    Liveness is counter-derived (it == k) — no boolean carry.
     """
     shape = cx.m.shape
     dtype = cx.m.dtype

@@ -18,10 +18,9 @@ Semantics preserved:
 * ``chebychev_norm`` = max(|re|, |im|)
 * comparisons have "both positive reduced" fast paths
 
-All functions are elementwise over arbitrary array shapes and work both
-at JAX level and inside Pallas kernels (f32 mantissas use integer
-bit-twiddling for frexp/ldexp so they lower through Mosaic; f64 uses
-jnp.frexp/ldexp and targets the CPU backend).
+All functions are elementwise over arbitrary array shapes (f32
+mantissas use integer bit-twiddling for frexp/ldexp; f64 uses
+jnp.frexp/ldexp).
 """
 
 from __future__ import annotations
@@ -32,8 +31,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# INT32_MIN >> 3 — numpy (not jnp) so Pallas kernels don't capture it
-# as a traced constant
+# INT32_MIN >> 3 — a numpy scalar, so no trace captures it as a device
+# constant
 MIN_BIG_EXPONENT = np.int32(-(2 ** 31) // 8)
 EXPONENT_DIFF_IGNORED = 120
 
@@ -217,11 +216,10 @@ def gte_reduced(a: HDR, b: HDR):
     return ~lt_reduced(a, b)
 
 
-# Unreduced compare fast paths (streaming-kernel hot loops).  Both are
+# Unreduced compare fast paths (perturbation-tail hot loops).  Both are
 # BOOLEAN-IDENTICAL to reducing first and comparing with the
 # *_reduced forms, under the preconditions below — they exist to drop
-# the per-step frexp/renormalize passes (measured ~10% of the
-# perturbation step).  Preconditions (hold for every call site:
+# the per-step frexp/renormalize passes.  Preconditions (hold for every call site:
 # chebychev_norm / norm_squared of a reduce_complex'd value, or a
 # stored reduced threshold): operands are non-negative with mantissa
 # either exactly 0 (any exponent; zero values carry the huge-negative

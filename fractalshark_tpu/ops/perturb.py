@@ -15,8 +15,7 @@ centerX = refX - minX, centerY = refY - maxY (``Fractal.cpp:2235-2237``).
 Variants: native float (f32/f64) and HDR (float+exp) for zooms past the
 native exponent range.  The orbit array lives as two flat device arrays
 (values are O(1), so plain floats); per-pixel dynamic indexing becomes
-an XLA gather.  Liveness is counter-derived (no bool carries) so the
-same step functions can be lifted into Pallas kernels.
+an XLA gather.  Liveness is counter-derived (no bool carries).
 """
 
 from __future__ import annotations
@@ -104,7 +103,7 @@ def _dc_grids_hdr(dx, dy, cx_off, cy_off, width, height, dtype):
 
 
 # --------------------------------------------------------------------------
-# Native-float kernel (f64 on CPU golden path; f32 on TPU shallow)
+# Native-float kernel (f64 golden path; f32 shallow)
 # --------------------------------------------------------------------------
 
 

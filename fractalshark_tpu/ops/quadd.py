@@ -5,10 +5,10 @@ expansions with renormalization, ``FractalSharkLib/QuadFloat/
 gqf_basic.cuh``, after Hida–Li–Bailey).  ops/quadflt.py's compensated
 pair-of-DFs reaches ~76–100 effective bits; this module implements the
 full four-component form with renormalization — branch-free (two
-quick-two-sum sweeps) so it vectorizes on the VPU — giving ~3.9×p
+quick-two-sum sweeps) so it vectorizes elementwise — giving ~3.9×p
 effective mantissa bits (≈92+ for f32 components, ≈200+ for f64).
 
-All ops are elementwise over arrays and jit/Pallas-safe.
+All ops are elementwise over arrays and jit-safe.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ are nearly correctly rounded, so Knuth-style error recovery at the DF
 level yields ~76–100 effective mantissa bits for 4×f32 (measured
 against a HighPrecision oracle) — short of textbook QD's ~96-bit
 worst case but far beyond f64, ample for escape-time iteration, and
-branch-free for the VPU. A full renormalizing QD is a ROADMAP item.
+branch-free; the full renormalizing QD is ops/quadd.py.
 """
 
 from __future__ import annotations

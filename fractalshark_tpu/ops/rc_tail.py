@@ -1,50 +1,29 @@
 """Gather-based RC perturbation tail: jump to each pixel's orbit
-position instead of sweeping to it.
+position in the compressed reference orbit.
 
-The lockstep-sweep RC kernel (``ops/perturb_stream.py``) advances a
-serial reconstruction cursor over orbit positions, so a pixel waiting
-at ``jwait`` costs the sweep the full distance to reach it — time
-proportional to the ORBIT LENGTH.  At View #30 scale (period 669,773)
-that is milliseconds; at View #27 scale (period 28,311,731,137 —
-``Notes/FractalShark-06-RefOrbit.tex:740-747``) a single pass is hours,
-while the actual per-pixel tail work after the LA handoff is a few
-thousand iterations.
+Runtime decompression (the reference decompresses inside the
+per-pixel kernel, ``FractalSharkGpuLib/Perturb.cuh:8-120``): the
+device holds only the anchor table of a ``CompressedOrbit``, never the
+uncompressed orbit.  Each pixel jumps straight to its own position —
+one vectorized ``searchsorted`` finds the last anchor ≤ its start
+position, a short *catch-up* phase replays the low-precision recurrence
+across the anchor gap (average span = compression ratio), and the
+perturbation tail then runs with one packed anchor-probe gather per
+step.  Cost is proportional to PER-PIXEL WORK, independent of orbit
+length, so the same tail serves a View #30 orbit (period 669,773) and a
+View #27 orbit (period 28,311,731,137 —
+``Notes/FractalShark-06-RefOrbit.tex:740-747``).
 
-This module is the complementary design point: a plain-XLA per-pixel
-state machine that GATHERS from the anchor table.  Each pixel jumps
-straight to its own position — one vectorized ``searchsorted`` finds
-the last anchor ≤ jwait, a short *catch-up* phase replays the
-low-precision recurrence across the anchor gap (average span =
-compression ratio ≈ 78), and the perturbation tail then runs with one
-packed anchor-probe gather per step.  Cost is proportional to
-PER-PIXEL WORK, independent of orbit length.
+Reconstruction runs in true f64 — identical values to
+``CompressedOrbit.decompress()`` (the host shadow) — so a render
+through this tail is bit-identical to the one-kernel LA machine on the
+decompressed orbit (tests/test_rc_tail.py).
 
-Numerics — two modes:
-
-* ``mode="f64"`` (CPU default): reconstruction in true f64 — identical
-  values to ``CompressedOrbit.decompress()`` (the host shadow), so a
-  render through this tail is bit-identical to the one-kernel LA
-  machine on the decompressed orbit (tests/test_rc_tail.py).
-* ``mode="df32"`` (TPU default): the TPU has no native f64 — XLA:TPU
-  emulates it by splitting every f64 array into f32 pairs, and at
-  View #27 scale those splits alone are 13.5 GB of HLO temps on an
-  8.7 GB anchor table (measured HBM OOM: 24.3 G needed of 15.75 G).
-  This mode keeps the DEVICE program in native f32/i32 end to end:
-  anchors ship split-at-rest as (hi, lo) f32 pairs in one [M, 5]
-  table (the same representation the sweep kernel pools in SMEM,
-  perturb_stream._prep_anchors), positions ride as i32
-  (anchor pointer, offset-past-anchor) pairs instead of i64, the
-  searchsorted init happens in host numpy, and the catch-up/probe
-  recurrence runs in double-float via ops/dblflt — the SAME formula
-  as the sweep kernel, so both reconstruct bit-identical values and
-  the two tails produce identical grids (tests/test_rc_tail.py).
-  Against the f64 mode, last-ulp iteration flips are possible on
-  compressed orbits, exactly as documented for
-  sweep-vs-decompressed (perturb_stream.py:384-390).
-
-The perturbation arithmetic itself (HDR f32, escape at 256, rebase on
-|z| < |dz| or orbit end) mirrors the sweep kernel step for step
-(reference semantics: ``FractalSharkGpuLib/Perturb.cuh`` tail loop).
+The perturbation arithmetic (HDR with f32 or f64 mantissas, escape at
+256, rebase on |z| < |dz| or orbit end) follows the reference tail loop
+(``FractalSharkGpuLib/Perturb.cuh``).  The tail starts either from fresh
+pixels (a plain RC perturbation render) or from an LA-phase handoff
+(``init_state``, two-phase LAv2).
 """
 
 from __future__ import annotations
@@ -58,8 +37,9 @@ import numpy as np
 
 from fractalshark_tpu.core.pointzoom import PointZoomBBConverter
 from fractalshark_tpu.ops import hdrfloat as hdr
-from fractalshark_tpu.ops.hdrfloat import HDR, HDRComplex
-from fractalshark_tpu.ops.la_kernel import chunk_ladder, default_chunk_steps
+from fractalshark_tpu.ops.hdrfloat import HDRComplex
+from fractalshark_tpu.ops.la_kernel import (chunk_ladder, default_chunk_steps,
+                                            next_rung)
 from fractalshark_tpu.ops.perturb import _dc_grids_hdr, delta_params
 
 
@@ -73,15 +53,43 @@ def _pack_anchors(compressed) -> np.ndarray:
     return np.ascontiguousarray(np.stack([ax, ay, ai], axis=1))
 
 
-@functools.partial(jax.jit, static_argnames=())
+def _orbit_value_at(compressed, idx: int) -> tuple[float, float]:
+    """Z[idx] reconstructed from the anchor set: last anchor ≤ idx, then
+    the f64 low-precision recurrence forward (exact when every entry is
+    an anchor; within compression-span error bounds otherwise,
+    PerturbationResultsHelpers.h:51-161).  Cached per (orbit, idx): the
+    handoff init evaluates it every frame."""
+    cache = getattr(compressed, "_zat_cache", None)
+    if cache is None:
+        cache = {}
+        try:
+            compressed._zat_cache = cache
+        except AttributeError:
+            cache = None
+    if cache is not None and idx in cache:
+        return cache[idx]
+    ai = compressed.anchor_index
+    k = int(np.searchsorted(ai, idx, side="right")) - 1
+    zx = float(compressed.anchors_x[k])
+    zy = float(compressed.anchors_y[k])
+    for _ in range(idx - int(ai[k])):
+        zx, zy = (zx * zx - zy * zy + compressed.cx_low,
+                  2.0 * zx * zy + compressed.cy_low)
+    if cache is not None:
+        cache[idx] = (zx, zy)
+    return zx, zy
+
+
+@jax.jit
 def _init_state(packed, dzr, dzi, dze, it, jw, dn, zx_mr, zy_mr,
                 max_iter, max_ref):
-    """LA-handoff → gather-tail state, one executable.  Mirrors
-    ``perturb_stream._rc_init_from_handoff``'s wrap semantics:
-    jwait == max_ref is the LA machine's WRAP position — rebase there
-    (dz ← Z[max_ref] + dz, position 0) without consuming an iteration."""
-    dzr = dzr.astype(jnp.float32)
-    dzi = dzi.astype(jnp.float32)
+    """Start state → gather-tail state, one executable.  jwait ==
+    max_ref is the LA machine's WRAP position — rebase there
+    (dz ← Z[max_ref] + dz, position 0) without consuming an iteration.
+    The mantissa dtype follows ``zx_mr``."""
+    dt = zx_mr.dtype
+    dzr = dzr.astype(dt)
+    dzi = dzi.astype(dt)
     dze = dze.astype(jnp.int32)
     it = it.astype(jnp.int64)
     jw = jw.astype(jnp.int64)
@@ -89,8 +97,8 @@ def _init_state(packed, dzr, dzi, dze, it, jw, dn, zx_mr, zy_mr,
     shape = jw.shape
 
     wrap = (jw >= max_ref) & (dn == 0)
-    zmr = HDRComplex(jnp.full(shape, zx_mr, jnp.float32),
-                     jnp.full(shape, zy_mr, jnp.float32),
+    zmr = HDRComplex(jnp.full(shape, zx_mr, dt),
+                     jnp.full(shape, zy_mr, dt),
                      jnp.zeros(shape, jnp.int32))
     zf = hdr.reduce_complex(hdr.complex_add(
         zmr, HDRComplex(dzr, dzi, dze)))
@@ -121,6 +129,7 @@ def _tail_impl(packed, dcr, dci, dce, state, cx64, cy64, a0x, a0y,
     """Budget-bounded resumable dispatch of the gather-tail state
     machine (same relaunch pattern as ``la_kernel._lav2_impl``)."""
     n_anchor = packed.shape[0]
+    dt = dcr.dtype
     dc = HDRComplex(dcr, dci, dce)
 
     def cond(c):
@@ -143,7 +152,7 @@ def _tail_impl(packed, dcr, dci, dce, state, cx64, cy64, a0x, a0y,
         rx = zx * zx - zy * zy + cx64
         ry = 2.0 * zx * zy + cy64
 
-        # ---- perturbation step (sweep-kernel arithmetic, HDR f32) ----
+        # ---- perturbation step (HDR) ----
         probe = jnp.clip(aptr + 1, 0, n_anchor - 1)
         g = packed[probe]                       # ONE gather: (H, W, 3)
         hit = stepping & (g[..., 2] == (pos + 1).astype(jnp.float64))
@@ -152,14 +161,13 @@ def _tail_impl(packed, dcr, dci, dce, state, cx64, cy64, a0x, a0y,
 
         shape = dzr.shape
         dz = HDRComplex(dzr, dzi, dze)
-        zj = HDRComplex(zx.astype(jnp.float32),
-                        zy.astype(jnp.float32),
+        zj = HDRComplex(zx.astype(dt), zy.astype(dt),
                         jnp.zeros(shape, jnp.int32))
         t = hdr.complex_add(hdr.complex_mul_pow2(zj, 1), dz)
         ndz = hdr.reduce_complex(
             hdr.complex_add(hdr.complex_mul(t, dz), dc))
         zf = hdr.reduce_complex(hdr.complex_add(
-            HDRComplex(znx.astype(jnp.float32), zny.astype(jnp.float32),
+            HDRComplex(znx.astype(dt), zny.astype(dt),
                        jnp.zeros(shape, jnp.int32)), ndz))
         nsq = hdr.norm_squared(zf)
         dsq = hdr.norm_squared(ndz)
@@ -200,297 +208,49 @@ def _tail_impl(packed, dcr, dci, dce, state, cx64, cy64, a0x, a0y,
     return tuple(out), all_done, k_fin
 
 
-def _pack_anchors_df(compressed):
-    """[M, 5] f32: (xh, xl, yh, yl, bitcast-i32 leading gap).  Row i's
-    last column is index[i] - index[i-1] (the gap LEADING to anchor i),
-    so the per-step probe gather at aptr+1 yields the next anchor's
-    value pair AND the current segment's length in ONE gather.  Row 0's
-    leading gap is a sentinel (never matched: rebase assigns anchor 0
-    directly)."""
-    ax = np.asarray(compressed.anchors_x, np.float64)
-    ay = np.asarray(compressed.anchors_y, np.float64)
-    ai = np.asarray(compressed.anchor_index, np.int64)
-    M = len(ax)
-    out = np.empty((M, 5), np.float32)
-    out[:, 0] = ax.astype(np.float32)
-    out[:, 1] = (ax - out[:, 0].astype(np.float64)).astype(np.float32)
-    out[:, 2] = ay.astype(np.float32)
-    out[:, 3] = (ay - out[:, 2].astype(np.float64)).astype(np.float32)
-    gaps = np.empty(M, np.int64)
-    gaps[0] = np.int32(0x7FFFFFFF)
-    if M > 1:
-        gaps[1:] = ai[1:] - ai[:-1]
-    assert gaps.max() <= 0x7FFFFFFF, "anchor gap exceeds i32"
-    out[:, 4] = gaps.astype(np.int32).view(np.float32)
-    return out
-
-
-@jax.jit
-def _wrap_dz(dzr, dzi, dze, wrap, zx_mr, zy_mr):
-    """LA-handoff wrap rebase (jwait == max_ref): dz ← Z[max_ref] + dz
-    without consuming an iteration — the (h, w)-shaped part of the df32
-    init (the searchsorted/anchor part runs in host numpy)."""
-    shape = dzr.shape
-    zmr = HDRComplex(jnp.full(shape, zx_mr, jnp.float32),
-                     jnp.full(shape, zy_mr, jnp.float32),
-                     jnp.zeros(shape, jnp.int32))
-    zf = hdr.reduce_complex(hdr.complex_add(
-        zmr, HDRComplex(dzr.astype(jnp.float32), dzi.astype(jnp.float32),
-                        dze.astype(jnp.int32))))
-    dzr = jnp.where(wrap, zf.re, dzr.astype(jnp.float32))
-    dzi = jnp.where(wrap, zf.im, dzi.astype(jnp.float32))
-    dze = jnp.where(wrap, zf.e, dze.astype(jnp.int32))
-    return dzr, dzi, dze
-
-
-@functools.partial(jax.jit, static_argnames=("chunk_steps",))
-def _tail_impl_df(packed, dcr, dci, dce, state, cxh, cxl, cyh, cyl,
-                  a0xh, a0xl, a0yh, a0yl, wrap_aptr, wrap_gap, n_anchor,
-                  chunk_steps):
-    """df32 gather-tail state machine: native f32/i32 device program
-    (no f64/i64 except the small (h, w) remaining-budget array).
-    Reconstruction recurrence = the sweep kernel's df32 formula
-    (perturb_stream.py step; ops/dblflt error-free transforms)."""
-    from fractalshark_tpu.ops import dblflt as dfm
-    DF = dfm.DF
-    dc = HDRComplex(dcr, dci, dce)
-    ccx = DF(cxh, cxl)
-    ccy = DF(cyh, cyl)
-
-    def cond(c):
-        # carry layout: (k, dzr, dzi, dze, rem, done, aptr, d, catch,
-        #                zxh, zxl, zyh, zyl)
-        k = c[0]
-        done = c[5]
-        not_done = jnp.min(done) < 1
-        if chunk_steps:
-            return jnp.logical_and(k < chunk_steps, not_done)
-        return not_done
-
-    def body(c):
-        (k, dzr, dzi, dze, rem, done, aptr, d, catch,
-         zxh, zxl, zyh, zyl) = c
-        live = done < 1
-        catching = live & (catch > 0)
-        stepping = live & (catch == 0)
-
-        # shared df32 recurrence from the current (zx, zy) — the
-        # catch-up advance AND the step's Z[pos+1] candidate
-        zx = DF(zxh, zxl)
-        zy = DF(zyh, zyl)
-        rx = dfm.df_add(dfm.df_sub(dfm.df_sqr(zx), dfm.df_sqr(zy)), ccx)
-        ry = dfm.df_add(dfm.df_mul_pow2(dfm.df_mul(zx, zy), 2.0), ccy)
-
-        # ---- anchor probe: ONE [h, w, 5] gather ----
-        at_last = aptr >= (n_anchor - 1)
-        probe = jnp.clip(aptr + 1, 0, n_anchor - 1)
-        g = packed[probe]
-        lead_gap = jax.lax.bitcast_convert_type(g[..., 4], jnp.int32)
-        hit = stepping & ~at_last & ((d + 1) == lead_gap)
-        # wrap segment: the anchor interval containing position
-        # max_ref-1 (its anchor may sit BELOW the last table row — on
-        # identity anchors the last row IS max_ref and is never
-        # stepped onto)
-        at_wrap = (aptr >= wrap_aptr) & ((d + 1) >= wrap_gap)
-        nzxh = jnp.where(hit, g[..., 0], rx.hi)
-        nzxl = jnp.where(hit, g[..., 1], rx.lo)
-        nzyh = jnp.where(hit, g[..., 2], ry.hi)
-        nzyl = jnp.where(hit, g[..., 3], ry.lo)
-
-        # ---- perturbation step (sweep-kernel arithmetic, HDR f32) ----
-        shape = dzr.shape
-        dz = HDRComplex(dzr, dzi, dze)
-        zj = HDRComplex(zxh, zyh, jnp.zeros(shape, jnp.int32))
-        t = hdr.complex_add(hdr.complex_mul_pow2(zj, 1), dz)
-        ndz = hdr.reduce_complex(
-            hdr.complex_add(hdr.complex_mul(t, dz), dc))
-        zf = hdr.reduce_complex(hdr.complex_add(
-            HDRComplex(nzxh, nzyh, jnp.zeros(shape, jnp.int32)), ndz))
-        nsq = hdr.norm_squared(zf)
-        dsq = hdr.norm_squared(ndz)
-        esc = hdr.gt_pow2_unreduced(nsq, 8)
-        reb = hdr.lt_unreduced(nsq, dsq) | at_wrap
-
-        esc_px = stepping & esc
-        upd = stepping & ~esc
-        reb_px = upd & reb
-        adv = upd & ~reb
-
-        dzr = jnp.where(upd, jnp.where(reb, zf.re, ndz.re), dzr)
-        dzi = jnp.where(upd, jnp.where(reb, zf.im, ndz.im), dzi)
-        dze = jnp.where(upd, jnp.where(reb, zf.e, ndz.e), dze)
-        rem = jnp.where(upd, rem - 1, rem)
-        exhausted = upd & (rem == 0)
-        done = jnp.where(esc_px | exhausted, jnp.int32(1), done)
-
-        # reconstruction advance in (aptr, d) i32 coordinates
-        zxh = jnp.where(catching, rx.hi, jnp.where(
-            adv, nzxh, jnp.where(reb_px, a0xh, zxh)))
-        zxl = jnp.where(catching, rx.lo, jnp.where(
-            adv, nzxl, jnp.where(reb_px, a0xl, zxl)))
-        zyh = jnp.where(catching, ry.hi, jnp.where(
-            adv, nzyh, jnp.where(reb_px, a0yh, zyh)))
-        zyl = jnp.where(catching, ry.lo, jnp.where(
-            adv, nzyl, jnp.where(reb_px, a0yl, zyl)))
-        d = jnp.where(catching, d + 1,
-                      jnp.where(adv, jnp.where(hit, 0, d + 1),
-                                jnp.where(reb_px, 0, d)))
-        aptr = jnp.where(adv & hit, aptr + 1,
-                         jnp.where(reb_px, 0, aptr))
-        catch = jnp.where(catching, catch - 1,
-                          jnp.where(reb_px, 0, catch))
-        return (k + 1, dzr, dzi, dze, rem, done, aptr, d, catch,
-                zxh, zxl, zyh, zyl)
-
-    k_fin, *out = jax.lax.while_loop(
-        cond, body, (jnp.int32(0),) + tuple(state))
-    all_done = jnp.min(out[4]) > 0
-    return tuple(out), all_done, k_fin
-
-
-def _rc_tail_gather_df32(compressed, center_x, center_y,
-                         ptz: PointZoomBBConverter,
-                         width: int, height: int, max_iter: int,
-                         init_state: dict, chunk_steps: int | None,
-                         abort_monitor):
-    """df32-mode driver: host-numpy init (searchsorted over the i64
-    anchor index; anchor values split hi/lo), then the native-f32/i32
-    device loop.  Same contract as the f64 driver."""
-    M = len(compressed.anchors_x)
-    ai = np.asarray(compressed.anchor_index, np.int64)
-    max_ref = int(compressed.total_count) - 1
-    packed_np = _pack_anchors_df(compressed)
-
-    it64 = np.asarray(init_state["it"]).astype(np.int64)
-    jw = np.asarray(init_state["jwait"]).astype(np.int64)
-    dn = np.asarray(init_state["done"]).astype(np.int32)
-    wrap = (jw >= max_ref) & (dn == 0)
-    from fractalshark_tpu.ops.perturb_stream import _orbit_value_at
-    zx_mr, zy_mr = _orbit_value_at(compressed, max_ref)
-    dzr, dzi, dze = _wrap_dz(
-        jnp.asarray(init_state["dzr"]), jnp.asarray(init_state["dzi"]),
-        jnp.asarray(init_state["dze"]), jnp.asarray(wrap),
-        np.float32(zx_mr), np.float32(zy_mr))
-
-    pos = np.where(wrap, np.int64(0),
-                   np.clip(jw, 0, max(max_ref - 1, 0)))
-    aptr = (np.searchsorted(ai, pos, side="right") - 1).astype(np.int32)
-    aptr = np.maximum(aptr, 0)
-    catch = (pos - ai[aptr]).astype(np.int32)
-    ax = np.asarray(compressed.anchors_x, np.float64)[aptr]
-    ay = np.asarray(compressed.anchors_y, np.float64)[aptr]
-    zxh = ax.astype(np.float32)
-    zxl = (ax - zxh.astype(np.float64)).astype(np.float32)
-    zyh = ay.astype(np.float32)
-    zyl = (ay - zyh.astype(np.float64)).astype(np.float32)
-    rem = np.maximum(np.int64(max_iter) - it64, 0)
-    done = ((dn > 0) | (rem == 0)).astype(np.int32)
-
-    state = (dzr, dzi, dze, jnp.asarray(rem), jnp.asarray(done),
-             jnp.asarray(aptr), jnp.zeros_like(jnp.asarray(aptr)),
-             jnp.asarray(catch), jnp.asarray(zxh), jnp.asarray(zxl),
-             jnp.asarray(zyh), jnp.asarray(zyl))
-
-    dx, dy, cxo, cyo = delta_params(ptz, center_x, center_y,
-                                    width, height)
-    dc = _dc_grids_hdr(dx, dy, cxo, cyo, width, height, np.float32)
-    packed = jnp.asarray(packed_np)
-    del packed_np
-    cxh = np.float32(compressed.cx_low)
-    cxl = np.float32(compressed.cx_low - float(cxh))
-    cyh = np.float32(compressed.cy_low)
-    cyl = np.float32(compressed.cy_low - float(cyh))
-    a0x = float(compressed.anchors_x[0])
-    a0y = float(compressed.anchors_y[0])
-    a0xh = np.float32(a0x)
-    a0xl = np.float32(a0x - float(np.float32(a0x)))
-    a0yh = np.float32(a0y)
-    a0yl = np.float32(a0y - float(np.float32(a0y)))
-    # wrap segment: last anchor at position <= max_ref-1
-    aW = int(np.searchsorted(ai, max(max_ref - 1, 0),
-                             side="right") - 1)
-    aW = max(aW, 0)
-    gapW = np.int32(max_ref - int(ai[aW]))
-
-    if chunk_steps is None:
-        if jax.default_backend() == "tpu":
-            chunk_steps = default_chunk_steps(width, height)
-        else:
-            chunk_steps = 0
-    args = (packed, dc.re, dc.im, dc.e)
-    consts = (cxh, cxl, cyh, cyl, a0xh, a0xl, a0yh, a0yl,
-              jnp.int32(aW), jnp.int32(gapW), jnp.int32(M))
-    ladder = chunk_ladder(int(chunk_steps))
-    rung = 0
-    t0 = time.perf_counter()
-    state, all_done, _ = _tail_impl_df(*args, state, *consts,
-                                       chunk_steps=ladder[0])
-    while not bool(all_done):
-        if abort_monitor is not None and abort_monitor.aborted():
-            break
-        dt = time.perf_counter() - t0
-        if dt < 0.8 and rung < len(ladder) - 1:
-            rung += 1
-        elif dt > 4.0 and rung > 0:
-            rung -= 1
-        t0 = time.perf_counter()
-        state, all_done, _ = _tail_impl_df(*args, state, *consts,
-                                           chunk_steps=ladder[rung])
-    rem = np.asarray(state[3]).astype(np.int64)
-    it = np.int64(max_iter) - rem
-    if max_iter < (1 << 31):
-        return jnp.asarray(it.astype(np.uint32))
-    return jnp.asarray(it.astype(np.uint64))
-
-
 def rc_tail_gather(compressed, center_x, center_y,
                    ptz: PointZoomBBConverter,
                    width: int, height: int, max_iter: int,
-                   init_state: dict, chunk_steps: int | None = None,
-                   abort_monitor=None, mode: str | None = None):
-    """Drop-in alternative to ``perturb_render_stream_rc`` for the
-    LA-handoff tail on period-billions orbits.  ``init_state`` uses the
-    same contract ('dzr','dzi','dze','it','jwait','done' — [h, w]).
-    Returns per-pixel iteration counts (uint32, or uint64 for 64-bit
-    budgets), matching the sweep path's convention.
-
-    ``mode``: "f64" (exact reconstruction; CPU default), "df32"
-    (native-f32/i32 device program; TPU default — f64 on TPU is
-    emulated via f32-pair splits whose temps OOM HBM at View #27
-    anchor counts), or None = by backend."""
-    M = len(compressed.anchors_x)
-    if M == 0:
-        return None
-    if mode is None:
-        mode = "df32" if jax.default_backend() == "tpu" else "f64"
-    if mode == "df32":
-        assert int(compressed.anchor_index[0]) == 0, \
-            "anchor 0 must be orbit position 0 (rebase target)"
-        return _rc_tail_gather_df32(
-            compressed, center_x, center_y, ptz, width, height,
-            max_iter, init_state, chunk_steps, abort_monitor)
+                   init_state: dict | None = None,
+                   chunk_steps: int | None = None,
+                   abort_monitor=None, sub_dtype=np.float32):
+    """Perturbation render from a ``CompressedOrbit``.  ``init_state``
+    is None for fresh pixels (dz = 0 at orbit position 0, no iterations
+    spent), or an LA-phase handoff: 'dzr','dzi','dze' (HDR delta),
+    'it' (completed iterations), 'jwait' (orbit position to resume at),
+    'done' — all [height, width].  Returns per-pixel iteration counts
+    (uint32, or uint64 for budgets >= 2^31)."""
+    if len(compressed.anchors_x) == 0:
+        raise ValueError("compressed orbit has no anchors")
     assert int(compressed.anchor_index[0]) == 0, \
         "anchor 0 must be orbit position 0 (rebase target)"
+    sub = np.dtype(sub_dtype).type
     packed = jnp.asarray(_pack_anchors(compressed))
     max_ref = int(compressed.total_count) - 1
 
     dx, dy, cxo, cyo = delta_params(ptz, center_x, center_y,
                                     width, height)
-    dc = _dc_grids_hdr(dx, dy, cxo, cyo, width, height, np.float32)
+    dc = _dc_grids_hdr(dx, dy, cxo, cyo, width, height, sub)
 
-    from fractalshark_tpu.ops.perturb_stream import _orbit_value_at
-    zx_mr, zy_mr = _orbit_value_at(compressed, max_ref)
+    if init_state is None:
+        # fresh pixels start at position 0: no wrap rebase to prepare
+        zx_mr = zy_mr = 0.0
+        zero = np.zeros((height, width), sub)
+        init_state = {"dzr": zero, "dzi": zero,
+                      "dze": np.full((height, width), hdr.MIN_BIG_EXPONENT,
+                                     np.int32),
+                      "it": np.zeros((height, width), np.int64),
+                      "jwait": np.zeros((height, width), np.int64),
+                      "done": np.zeros((height, width), np.int32)}
+    else:
+        zx_mr, zy_mr = _orbit_value_at(compressed, max_ref)
     state = _init_state(
         packed, init_state["dzr"], init_state["dzi"], init_state["dze"],
         init_state["it"], init_state["jwait"], init_state["done"],
-        np.float32(zx_mr), np.float32(zy_mr),
-        jnp.int64(max_iter), jnp.int64(max_ref))
+        sub(zx_mr), sub(zy_mr), jnp.int64(max_iter), jnp.int64(max_ref))
 
     if chunk_steps is None:
-        if jax.default_backend() == "tpu":
-            chunk_steps = default_chunk_steps(width, height)
-        else:
-            chunk_steps = 0
+        chunk_steps = default_chunk_steps(width, height)
     args = (packed, dc.re, dc.im, dc.e)
     consts = (jnp.float64(compressed.cx_low),
               jnp.float64(compressed.cy_low),
@@ -505,11 +265,7 @@ def rc_tail_gather(compressed, center_x, center_y,
     while not bool(all_done):
         if abort_monitor is not None and abort_monitor.aborted():
             break
-        dt = time.perf_counter() - t0
-        if dt < 0.8 and rung < len(ladder) - 1:
-            rung += 1
-        elif dt > 4.0 and rung > 0:
-            rung -= 1
+        rung = next_rung(rung, time.perf_counter() - t0, len(ladder))
         t0 = time.perf_counter()
         state, all_done, _ = _tail_impl(*args, state, *consts,
                                         chunk_steps=ladder[rung])

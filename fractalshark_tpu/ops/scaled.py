@@ -7,7 +7,7 @@ run float/2×32 deltas against a double orbit and mark orbit entries
 bad entry re-render at higher precision (SURVEY.md A.8,
 ``RefOrbitCalc.cpp:553-560,1930-1940``).
 
-TPU-native structure: one wide f32 pass tracking a per-pixel glitch
+Structure: one wide f32 pass tracking a per-pixel glitch
 flag (OR of bad[j] over visited entries), then a second masked pass in
 HDR for the glitched set only. No per-pixel rescaling machinery: the
 second pass IS the higher-precision path, and masked lockstep means

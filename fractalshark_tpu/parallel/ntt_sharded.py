@@ -1,11 +1,11 @@
-"""Limb-sharded multi-chip NTT — one bignum spread over the mesh.
+"""Limb-sharded multi-device NTT — one bignum spread over the mesh.
 
 The reference scales one high-precision multiply across the whole GPU
 with a grid-wide cooperative kernel
 (``HpSharkFloatLib/KernelHpSharkReferenceOrbit_cu.h:255``: every block
-participates in one NTT, grid-sync between passes). The TPU-native
-equivalent shards the *digit axis* over a ``jax.sharding.Mesh`` and
-rides ICI collectives instead of grid syncs:
+participates in one NTT, grid-sync between passes). The equivalent
+here shards the *digit axis* over a 1-D ``jax.sharding.Mesh`` and rides
+collectives (NCCL over NVLink on a GPU host) instead of grid syncs:
 
 * Bailey four-step factorisation n = n1·n2 (ops/bignum/ntt.py): with the
   coefficient tensor laid out ``[R, n1, n2]`` and sharded over n2, the
@@ -13,14 +13,14 @@ rides ICI collectives instead of grid syncs:
   device.  The twiddle-matrix multiply is elementwise (its table is
   sharded the same way).
 * The four-step transpose is the ONLY cross-device exchange: a single
-  ``jax.lax.all_to_all`` over the mesh axis (the ICI analogue of the
+  ``jax.lax.all_to_all`` over the mesh axis (the analogue of the
   reference's grid-wide barrier + shared-memory transpose).
 * Stage-2 butterflies pair along n2 — local again after the exchange.
 
 One forward transform therefore costs exactly one all-to-all of the
 coefficient tensor; a full bignum multiply costs 4 (two forward, two
 inverse... shared-transform tricks reduce the forward count exactly as
-in the single-chip pipeline).
+in the single-device pipeline).
 
 Numerically this is the *same* chain as ``ntt.fourstep_forward`` /
 ``fourstep_inverse_scaled`` — outputs are bit-identical to the
@@ -64,16 +64,13 @@ def _fwd_impl(a, t1, t1p, n, mesh):
                   P(None, None, AXIS)),
         out_specs=P(None, None, AXIS))
     def fwd(a, t1, t1p):
-        # per-device phases route through the Pallas sublane kernels
-        # when the local lane count allows (VERDICT r2 weak #3: the
-        # sharded path used the slow XLA stage passes unconditionally)
-        b = N._phase_dif(a, c["tw1_f"], p_col, c["n1"])
+        b = N._axis0_dif(a, c["tw1_f"], p_col)
         b = N._shoup_mul(b, t1, t1p, p_col[:, :, None])
         # four-step transpose = ONE all-to-all over the limb axis
         bt = jax.lax.all_to_all(b, AXIS, split_axis=1, concat_axis=2,
                                 tiled=True)
         bt = jnp.transpose(bt, (0, 2, 1))
-        return N._phase_dif(bt, c["tw2_f"], p_col, c["n2"])
+        return N._axis0_dif(bt, c["tw2_f"], p_col)
 
     return fwd(a, t1, t1p)
 
@@ -99,12 +96,12 @@ def _inv_impl(e, t1i, t1ip, n, mesh, extra_scale_r):
                   P(None, None, AXIS)),
         out_specs=P(None, None, AXIS))
     def inv(e, t1i, t1ip):
-        bt = N._phase_dit(e, c["tw2_i"], p_col, c["n2"])
+        bt = N._axis0_dit(e, c["tw2_i"], p_col)
         b = jnp.transpose(bt, (0, 2, 1))
         b = jax.lax.all_to_all(b, AXIS, split_axis=2, concat_axis=1,
                                tiled=True)
         b = N._shoup_mul(b, t1i, t1ip, p_col[:, :, None])
-        y = N._phase_dit(b, c["tw1_i"], p_col, c["n1"])
+        y = N._axis0_dit(b, c["tw1_i"], p_col)
         return N._shoup_mul(y, jnp.asarray(sc)[:, :, None],
                             jnp.asarray(scp)[:, :, None], p_col[:, :, None])
 

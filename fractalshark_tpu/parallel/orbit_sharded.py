@@ -4,11 +4,11 @@ bignum.
 The reference's premise for big operands is a grid-wide cooperative
 kernel: every block participates in one NTT multiply with grid syncs
 between passes (``HpSharkFloatLib/KernelHpSharkReferenceOrbit_cu.h:255``).
-The TPU analogue shards the digit axis of the z ← z² + c update over a
-``jax.sharding.Mesh`` and rides ICI collectives:
+Here the digit axis of the z ← z² + c update is sharded over a 1-D
+``jax.sharding.Mesh`` and the exchanges ride collectives:
 
 * **transforms**: the limb-sharded four-step (parallel/ntt_sharded.py
-  layout) with the Pallas phase kernels inside the per-device blocks —
+  layout) with the butterfly stages inside the per-device blocks —
   ONE all_to_all per transform direction replaces the grid-wide
   transpose barrier;
 * **pointwise + frequency combines**: fully local;
@@ -16,10 +16,10 @@ The TPU analogue shards the digit axis of the z ← z² + c update over a
   accumulates its contiguous digit block; cross-shard carry resolution
   is hierarchical Kogge-Stone — local prefix, then an all_gather of
   per-shard (generate, propagate) aggregates (M tiny values), then one
-  combine — the ICI analogue of the reference's grid-sync carry passes
+  combine — the analogue of the reference's grid-sync carry passes
   (``Add.cu``).
 
-Outputs are BIT-IDENTICAL to the single-chip ``fixedpoint.iterate_z``
+Outputs are BIT-IDENTICAL to the single-device ``fixedpoint.iterate_z``
 (tests/test_parallel_orbit.py proves it on the 8-virtual-device CPU
 mesh at the View-#30 operand size).
 """
@@ -217,12 +217,12 @@ def iterate_z_sharded(sx, x, sy, y, scx, cx, scy, cy, *,
     def body(a, t1_, t1p_, t1i_, t1ip_, cfx_, cfy_, rnd_, sgs_):
         pc3 = p_col[:, :, None]
         # ---- forward four-step: local phases + ONE all_to_all ----
-        b = N._phase_dif(a, c["tw1_f"], p_col, n1)
+        b = N._axis0_dif(a, c["tw1_f"], p_col)
         b = N._shoup_mul(b, t1_, t1p_, pc3)
         bt = jax.lax.all_to_all(b, AXIS, split_axis=1, concat_axis=2,
                                 tiled=True)
         bt = jnp.transpose(bt, (0, 2, 1))
-        f = N._phase_dif(bt, c["tw2_f"], p_col, n2)     # [4, n2, n1/M]
+        f = N._axis0_dif(bt, c["tw2_f"], p_col)     # [4, n2, n1/M]
 
         # ---- pointwise + frequency combines (local) ----
         fx, fy = f[0:2], f[2:4]
@@ -234,12 +234,12 @@ def iterate_z_sharded(sx, x, sy, y, scx, cx, scy, cy, *,
         e = jnp.concatenate([d, xy], axis=0)            # [4, n2, n1/M]
 
         # ---- inverse four-step ----
-        bt2 = N._phase_dit(e, c["tw2_i"], p_col, n2)
+        bt2 = N._axis0_dit(e, c["tw2_i"], p_col)
         b2 = jnp.transpose(bt2, (0, 2, 1))
         b2 = jax.lax.all_to_all(b2, AXIS, split_axis=2, concat_axis=1,
                                 tiled=True)
         b2 = N._shoup_mul(b2, t1i_, t1ip_, pc3)
-        yv = N._phase_dit(b2, c["tw1_i"], p_col, n1)
+        yv = N._axis0_dit(b2, c["tw1_i"], p_col)
         inv_loc = N._shoup_mul(yv, jnp.asarray(sc), jnp.asarray(scp),
                                pc3)                     # [4, n1, n2/M]
 

@@ -1,14 +1,14 @@
-"""Multi-chip rendering: pixel-tile data parallelism over a device mesh.
+"""Multi-device rendering: pixel-row data parallelism over a device mesh.
 
 The reference is single-GPU; its pixel-grid parallelism (CUDA grid,
-``GPU_Render.h:116-120``) maps TPU-natively to sharding the pixel rows
-of the delta grid across a 1-D ``jax.sharding.Mesh`` axis ("pixels"):
+``GPU_Render.h:116-120``) maps to sharding the pixel rows of the delta
+grid across a 1-D ``jax.sharding.Mesh`` axis ("pixels"):
 
 * per-pixel state (dz, counters) is row-sharded — pure data parallel,
   zero communication in the hot loop except the tiny all-reduce XLA
-  inserts for the "any pixel live?" loop condition (rides ICI);
+  inserts for the "any pixel live?" loop condition;
 * the reference orbit and LA tables are small and replicated to every
-  chip (the analogue of the orbit/LA upload to the single GPU,
+  device (the analogue of the orbit/LA upload to the single GPU,
   ``GPU_Render.cu:432 InitializePerturb``);
 * iteration statistics reduce with psum (``ReductionKernels.cuh``).
 
@@ -121,7 +121,7 @@ def sharded_escape_render(params: PlainParams, width: int, height: int,
 
 def sharded_stats(iters, mesh: Mesh):
     """Min/Max/Sum of a sharded iteration buffer — XLA lowers these to
-    psum/pmax trees over ICI (ReductionKernels.cuh analogue)."""
+    psum/pmax collectives (ReductionKernels.cuh analogue)."""
     import jax.numpy as jnp
 
     return {

@@ -1,8 +1,8 @@
 """Multi-host tile farming (DCN) with checkpointed tile queues.
 
 The reference is single-node; its scale-out analogue in SURVEY.md §2.5
-is farming pixel TILES of one huge render across hosts: ICI parallelism
-stays *inside* a host (sharded render over the local mesh,
+is farming pixel TILES of one huge render across hosts: device
+parallelism stays *inside* a host (sharded render over the local mesh,
 parallel/render.py), while hosts coordinate over DCN.  Design:
 
 * a render is cut into fixed tiles (row bands by default);

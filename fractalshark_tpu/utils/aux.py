@@ -11,7 +11,7 @@
 * MemoryBudget — a soft commit cap: device-buffer allocations are
   tracked and renders refuse to start past the budget (the reference
   enforces ``m_CommitLimitInBytes`` through its custom heap,
-  ``Fractal.h:520``; on TPU the analogue guards HBM planning).
+  ``Fractal.h:520``; here it guards device-memory planning).
 """
 
 from __future__ import annotations

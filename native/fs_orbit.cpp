@@ -1,6 +1,6 @@
 // Native host reference-orbit evaluator.
 //
-// The TPU framework's counterpart of the reference's MPIR-backed CPU
+// This framework's counterpart of the reference's MPIR-backed CPU
 // orbit paths (RefOrbitCalc ST/MT, RefOrbitCalc.cpp:470-625): iterate
 // z <- z^2 + c in fixed-point on GMP's low-level mpn limb API, with the
 // dzdc periodicity test and |old_z + c|^2 > 256 escape, emitting the

@@ -1,4 +1,4 @@
-"""Big-number TPU pipeline tests — differential testing against Python
+"""Big-number device pipeline tests — differential testing against Python
 ints as the oracle, mirroring the reference's strategy of checking GPU
 HpSharkFloat results against MPIR (``HpSharkFloatTest``,
 ``Tests.cpp:312 DiffAgainstHost``)."""

@@ -365,7 +365,7 @@ def test_la_wide_path_bit_identical(deep_view):
 
 def test_device_stage_window_parameter():
     """fractal.la_parameters.device_stage_window windows the device
-    table through get_or_build_la (the TPU-native MaxPerf lever) and
+    table through get_or_build_la (a MaxPerf-style lever) and
     caches full + windowed tables separately."""
     from fractalshark_tpu.engine import native_la
     from fractalshark_tpu.engine.la_reference import get_or_build_la

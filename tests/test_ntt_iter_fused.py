@@ -1,6 +1,5 @@
 """Frequency-domain-combined (iteration-fused) NTT multiplies:
-multiply_iter / multiply_nr_iter and the single-kernel Pallas NTT
-(interpret mode) against exact Python-int arithmetic.
+multiply_iter / multiply_nr_iter against exact Python-int arithmetic.
 
 The reference inverse-transforms every product separately and combines
 in carry-sync passes (MultiplyNTT.cu:2943, Add.cu); here x²−y² (and the
@@ -14,8 +13,6 @@ import jax.numpy as jnp
 
 from fractalshark_tpu.core.highprecision import HighPrecision
 from fractalshark_tpu.ops.bignum import fixedpoint as FP
-from fractalshark_tpu.ops.bignum import ntt as N
-from fractalshark_tpu.ops.bignum import ntt_pallas as NP
 
 
 def _rand_mag(rng, spec):
@@ -34,7 +31,8 @@ def _exact_iter(x, y, F):
 
 
 class TestMultiplyIter:
-    @pytest.mark.parametrize("limbs", [8, 32])
+    # 8, 32: flat transforms; 2048, 4096: the four-step butterfly route
+    @pytest.mark.parametrize("limbs", [8, 32, 2048, 4096])
     def test_matches_ints(self, limbs):
         spec = FP.FixedSpec.for_limbs(limbs)
         rng = np.random.default_rng(11)
@@ -88,269 +86,31 @@ class TestMultiplyNRIter:
             assert got == w
 
 
-class TestPallasInterpret:
-    """The single-kernel NTT in interpret mode vs the XLA transforms."""
+def test_iterate_z_16384_limbs_exact():
+    """One full z <- z^2 + c update at the View #30 operand size (16384
+    limbs, nfft 65536 — the four-step butterfly route the device orbit
+    runs) on the real View #30 center, against Python ints."""
+    from fractalshark_tpu.core.views import get_view_preset
 
-    @pytest.mark.parametrize("nfft", [2048, 8192])
-    def test_3way_products(self, nfft):
-        D = nfft // 2
-        rng = np.random.default_rng(7)
-        ax = rng.integers(0, 1 << 16, D, dtype=np.uint32)
-        ay = rng.integers(0, 1 << 16, D, dtype=np.uint32)
-        vx = jnp.concatenate([jnp.asarray(ax),
-                              jnp.zeros(nfft - D, jnp.uint32)])
-        vy = jnp.concatenate([jnp.asarray(ay),
-                              jnp.zeros(nfft - D, jnp.uint32)])
-        stacked = jnp.stack([vx, vx, vy, vy])
-        f = N.shoup_forward(stacked, nfft)
-        a_ops = jnp.stack([f[0], f[1], f[2], f[3], f[0], f[1]])
-        b_ops = jnp.stack([f[0], f[1], f[2], f[3], f[2], f[3]])
-        pc, ppc = N._row_consts(6)
-        ref = np.asarray(N.shoup_inverse_scaled(
-            N._mont_mul_rows(a_ops, b_ops, pc, ppc), nfft,
-            extra_scale_r=True))
-        got = np.asarray(NP.ntt3way_products(vx, vy, nfft,
-                                             interpret=True))
-        assert (got == ref).all()
+    spec = FP.FixedSpec.for_limbs(16384)
+    F = spec.frac_digits
+    v30 = get_view_preset(30).ptz
+    prec = spec.frac_bits - 20
+    scx, dcx = FP.hp_to_digits(v30.pt_x.with_precision(prec), spec)
+    scy, dcy = FP.hp_to_digits(v30.pt_y.with_precision(prec), spec)
+    nsx, nx, nsy, ny = FP.iterate_z(
+        jnp.int32(scx), jnp.asarray(dcx), jnp.int32(scy),
+        jnp.asarray(dcy), jnp.int32(scx), jnp.asarray(dcx),
+        jnp.int32(scy), jnp.asarray(dcy), spec)
+    x = scx * FP.digits_to_int(dcx)
+    y = scy * FP.digits_to_int(dcy)
+    half, shift = 1 << (16 * F - 1), 16 * F
 
-    def test_iter_products_signed_crt(self):
-        """End-to-end: pallas iter products → signed CRT → exact ints."""
-        spec = FP.FixedSpec.for_limbs(512)  # nfft = 2048 ≥ MIN_NFFT
-        assert NP.supported(spec.nfft)
-        rng = np.random.default_rng(9)
-        F = spec.frac_digits
-        (_, ax), (_, ay) = _rand_mag(rng, spec), _rand_mag(rng, spec)
-        D = spec.digits
-        pad = spec.nfft - D
-        vx = jnp.concatenate([jnp.asarray(ax),
-                              jnp.zeros(pad, jnp.uint32)])
-        vy = jnp.concatenate([jnp.asarray(ay),
-                              jnp.zeros(pad, jnp.uint32)])
-        inv = NP.ntt_iter_products(vx, vy, spec.nfft, interpret=True)
-        sd, dd = FP._crt_to_digit_sums_signed(inv[0], inv[1],
-                                              out_digits=2 * D,
-                                              round_digit=F - 1)
-        x_i, y_i = FP.digits_to_int(ax), FP.digits_to_int(ay)
-        esd, ed, _ = _exact_iter(x_i, y_i, F)
-        got = int(np.asarray(sd)) * FP.digits_to_int(np.asarray(dd)[F:F + D])
-        assert got == esd * ed
+    def rhu(v):
+        t = v + half
+        return (1 if t >= 0 else -1) * (abs(t) >> shift)
 
-    def test_split_pipeline_matches_xla_fourstep(self):
-        """The three-kernel split pipeline (nfft > whole-kernel VMEM
-        window) against the XLA four-step: identical inverse rows —
-        exact integer convolutions mod p, any correct chain agrees
-        elementwise."""
-        nfft = 32768
-        assert NP.supported_split(nfft)
-        D = nfft // 2
-        rng = np.random.default_rng(21)
-        ax = rng.integers(0, 1 << 16, D, dtype=np.uint32)
-        ay = rng.integers(0, 1 << 16, D, dtype=np.uint32)
-        vx = jnp.concatenate([jnp.asarray(ax),
-                              jnp.zeros(nfft - D, jnp.uint32)])
-        vy = jnp.concatenate([jnp.asarray(ay),
-                              jnp.zeros(nfft - D, jnp.uint32)])
-        got = np.asarray(NP.ntt_iter_products(vx, vy, nfft,
-                                              interpret=True))
-        stacked = jnp.stack([vx, vx, vy, vy])
-        f = N.fourstep_forward(stacked, nfft)
-        p2c, pp2c = N._row_consts(2)
-        sq = N._mont_mul_rows(f, f, *N._row_consts(4))
-        d = N._mod_sub_rows(sq[0:2], sq[2:4], p2c)
-        xy = N._mont_mul_rows(f[0:2], f[2:4], p2c, pp2c)
-        ref = np.asarray(N.fourstep_inverse_scaled(
-            jnp.concatenate([d, xy]), nfft, extra_scale_r=True))
-        assert (got == ref).all()
-
-    def test_fused_tail_matches_xla_tail(self):
-        """fused CRT+carry tail kernel (interpret) vs the XLA tail:
-        identical (sign, digits) for the z-update, including the +c
-        folding and round term."""
-        spec = FP.FixedSpec.for_limbs(1024)     # nfft 4096 == 2D
-        nfft, D, F = spec.nfft, spec.digits, spec.frac_digits
-        assert 2 * D == nfft
-        rng = np.random.default_rng(31)
-        for trial in range(3):
-            (sx, ax), (sy, ay) = (_rand_mag(rng, spec),
-                                  _rand_mag(rng, spec))
-            (scx, cxd), (scy, cyd) = (_rand_mag(rng, spec),
-                                      _rand_mag(rng, spec))
-            pad = nfft - D
-            vx = jnp.concatenate([jnp.asarray(ax),
-                                  jnp.zeros(pad, jnp.uint32)])
-            vy = jnp.concatenate([jnp.asarray(ay),
-                                  jnp.zeros(pad, jnp.uint32)])
-            stacked = jnp.stack([vx, vx, vy, vy])
-            f = N.shoup_forward(stacked, nfft)
-            p2c, pp2c = N._row_consts(2)
-            sq = N._mont_mul_rows(f, f, *N._row_consts(4))
-            d = N._mod_sub_rows(sq[0:2], sq[2:4], p2c)
-            xy = N._mont_mul_rows(f[0:2], f[2:4], p2c, pp2c)
-            inv = N.shoup_inverse_scaled(jnp.concatenate([d, xy]),
-                                         nfft, extra_scale_r=True)
-            # XLA tail
-            L = 2 * D
-            px, nx = FP._signed_streams(inv[0], inv[1], False, L)
-            px, nx = FP._fold_addend(px, nx, jnp.int32(scx),
-                                     jnp.asarray(cxd), F)
-            py, ny = FP._unsigned_stream(inv[2], inv[3],
-                                         jnp.int32(sx * sy), True, L)
-            py, ny = FP._fold_addend(py, ny, jnp.int32(scy),
-                                     jnp.asarray(cyd), F)
-            wsg, wmg = FP._finish_signed_rows(jnp.stack([px, py]),
-                                              jnp.stack([nx, ny]),
-                                              F, D, F - 1)
-            # fused tail
-            z = jnp.zeros((L,), jnp.uint32)
-            cfx = z.at[F:F + D].set(jnp.asarray(cxd))
-            cfy = z.at[F:F + D].set(jnp.asarray(cyd))
-            rnd = z.at[F - 1].set(jnp.uint32(1 << 15))
-            sgs = jnp.asarray([scx, scy, sx * sy, 0], jnp.int32)
-            dig, sgn = NP.fused_tail(inv.reshape(2, 2, nfft),
-                                     jnp.stack([cfx, cfy]), rnd, sgs,
-                                     n=nfft, interpret=True)
-            assert (np.asarray(sgn) == np.asarray(wsg)).all(), trial
-            got = np.asarray(dig)[:, F:F + D]
-            assert (got == np.asarray(wmg)).all(), trial
-
-    def test_fused_tail_shadow_rows(self):
-        """shadow_fd emission: the in-kernel (window, base) rows must
-        equal orbit._emit_shadow on the value slice — the orbit scan
-        consumes these instead of its argmax/dynamic_slice glue."""
-        from fractalshark_tpu.ops.bignum.orbit import _emit_shadow
-        spec = FP.FixedSpec.for_limbs(1024)
-        nfft, D, F = spec.nfft, spec.digits, spec.frac_digits
-        rng = np.random.default_rng(77)
-        for trial in range(3):
-            (sx, ax), (sy, ay) = (_rand_mag(rng, spec),
-                                  _rand_mag(rng, spec))
-            (scx, cxd), (scy, cyd) = (_rand_mag(rng, spec),
-                                      _rand_mag(rng, spec))
-            pad = nfft - D
-            vx = jnp.concatenate([jnp.asarray(ax),
-                                  jnp.zeros(pad, jnp.uint32)])
-            vy = jnp.concatenate([jnp.asarray(ay),
-                                  jnp.zeros(pad, jnp.uint32)])
-            stacked = jnp.stack([vx, vx, vy, vy])
-            f = N.shoup_forward(stacked, nfft)
-            p2c, pp2c = N._row_consts(2)
-            sq = N._mont_mul_rows(f, f, *N._row_consts(4))
-            d = N._mod_sub_rows(sq[0:2], sq[2:4], p2c)
-            xy = N._mont_mul_rows(f[0:2], f[2:4], p2c, pp2c)
-            inv = N.shoup_inverse_scaled(jnp.concatenate([d, xy]),
-                                         nfft, extra_scale_r=True)
-            L = 2 * D
-            z = jnp.zeros((L,), jnp.uint32)
-            cfx = z.at[F:F + D].set(jnp.asarray(cxd))
-            cfy = z.at[F:F + D].set(jnp.asarray(cyd))
-            rnd = z.at[F - 1].set(jnp.uint32(1 << 15))
-            sgs = jnp.asarray([scx, scy, sx * sy, 0], jnp.int32)
-            dig, sgn, shw = NP.fused_tail(
-                inv.reshape(2, 2, nfft), jnp.stack([cfx, cfy]), rnd,
-                sgs, n=nfft, shadow_fd=(F, D), interpret=True)
-            shw = np.asarray(shw)
-            for k in range(2):
-                digits = jnp.asarray(np.asarray(dig)[k, F:F + D])
-                win, base = _emit_shadow(digits)
-                np.testing.assert_array_equal(
-                    shw[k, 0:4], np.asarray(win).astype(np.int32),
-                    err_msg=f"win k={k} trial={trial}")
-                assert shw[k, 4] == int(base), (trial, k)
-
-    def test_fused_tail_nr_matches_xla_tail(self):
-        """NR fused tail (4 signed rows, doubling, +1 addend) vs the
-        XLA tail rows of iterate_z_nr."""
-        spec = FP.FixedSpec.for_limbs(1024)
-        nfft, D, F = spec.nfft, spec.digits, spec.frac_digits
-        rng = np.random.default_rng(33)
-        vals = [_rand_mag(rng, spec) for _ in range(4)]
-        (sx, ax), (sy, ay), (sdx, adx), (sdy, ady) = vals
-        (scx, cxd), (scy, cyd) = _rand_mag(rng, spec), _rand_mag(rng, spec)
-        pad = nfft - D
-
-        def padv(v):
-            return jnp.concatenate([jnp.asarray(v),
-                                    jnp.zeros(pad, jnp.uint32)])
-
-        stacked = jnp.stack([padv(ax), padv(ax), padv(ay), padv(ay),
-                             padv(adx), padv(adx), padv(ady), padv(ady)])
-        f = N.shoup_forward(stacked, nfft)
-        p8c, _ = N._row_consts(8)
-        signs = jnp.stack([jnp.int32(s) for s in
-                           (sx, sx, sy, sy, sdx, sdx, sdy, sdy)])
-        fneg = jnp.where(f == 0, f, p8c - f)
-        f = jnp.where((signs < 0)[:, None], fneg, f)
-        p2c, pp2c = N._row_consts(2)
-
-        def mul2(a2, b2):
-            return N._mont_mul_rows(a2, b2, p2c, pp2c)
-
-        fx, fy, fdx, fdy = f[0:2], f[2:4], f[4:6], f[6:8]
-        dd = N._mod_sub_rows(mul2(fx, fx), mul2(fy, fy), p2c)
-        xy = mul2(fx, fy)
-        u = N._mod_sub_rows(mul2(fx, fdx), mul2(fy, fdy), p2c)
-        v = N._mod_add_rows(mul2(fx, fdy), mul2(fy, fdx), p2c)
-        inv = N.shoup_inverse_scaled(jnp.concatenate([dd, xy, u, v]),
-                                     nfft, extra_scale_r=True)
-        L = 2 * D
-        one = jnp.ones((1,), jnp.uint32)
-        p0, n0 = FP._signed_streams(inv[0], inv[1], False, L)
-        p0, n0 = FP._fold_addend(p0, n0, jnp.int32(scx),
-                                 jnp.asarray(cxd), F)
-        p1, n1 = FP._signed_streams(inv[2], inv[3], True, L)
-        p1, n1 = FP._fold_addend(p1, n1, jnp.int32(scy),
-                                 jnp.asarray(cyd), F)
-        p2, n2 = FP._signed_streams(inv[4], inv[5], True, L)
-        p2, n2 = FP._fold_addend(p2, n2, jnp.int32(1), one, 2 * F)
-        p3, n3 = FP._signed_streams(inv[6], inv[7], True, L)
-        wsg, wmg = FP._finish_signed_rows(jnp.stack([p0, p1, p2, p3]),
-                                          jnp.stack([n0, n1, n2, n3]),
-                                          F, D, F - 1)
-        z = jnp.zeros((L,), jnp.uint32)
-        cfx = z.at[F:F + D].set(jnp.asarray(cxd))
-        cfy = z.at[F:F + D].set(jnp.asarray(cyd))
-        onef = z.at[2 * F].set(jnp.uint32(1))
-        rnd = z.at[F - 1].set(jnp.uint32(1 << 15))
-        sgs = jnp.asarray([scx, scy, 0, 0], jnp.int32)
-        dig, sgn = NP.fused_tail(inv.reshape(4, 2, nfft),
-                                 jnp.stack([cfx, cfy, onef, z]), rnd,
-                                 sgs, n=nfft, nr=True, interpret=True)
-        assert (np.asarray(sgn) == np.asarray(wsg)).all()
-        assert (np.asarray(dig)[:, F:F + D] == np.asarray(wmg)).all()
-
-    def test_nr_iter_products_signs(self):
-        """Sign folding: NTT(−a) = p − NTT(a) pointwise."""
-        spec = FP.FixedSpec.for_limbs(512)
-        rng = np.random.default_rng(10)
-        F = spec.frac_digits
-        half = 1 << (16 * F - 1)
-        vals = [_rand_mag(rng, spec) for _ in range(4)]
-        D = spec.digits
-        pad = spec.nfft - D
-
-        def padv(a):
-            return jnp.concatenate([jnp.asarray(a),
-                                    jnp.zeros(pad, jnp.uint32)])
-
-        signs = jnp.asarray([1, -1, -1, 1], jnp.int32)
-        inv = NP.ntt_nr_iter_products(
-            padv(vals[0][1]), padv(vals[1][1]), padv(vals[2][1]),
-            padv(vals[3][1]), signs, spec.nfft, interpret=True)
-        x = FP.digits_to_int(vals[0][1])
-        y = -FP.digits_to_int(vals[1][1])
-        dx = -FP.digits_to_int(vals[2][1])
-        dy = FP.digits_to_int(vals[3][1])
-
-        def rhu(v):
-            t = v + half
-            return (1 if t >= 0 else -1) * (abs(t) >> (16 * F))
-
-        want = [rhu(x * x - y * y), rhu(x * y),
-                rhu(x * dx - y * dy), rhu(x * dy + y * dx)]
-        for k, w in enumerate(want):
-            s, m = FP._crt_to_digit_sums_signed(inv[2 * k], inv[2 * k + 1],
-                                                out_digits=2 * D,
-                                                round_digit=F - 1)
-            got = int(np.asarray(s)) * \
-                FP.digits_to_int(np.asarray(m)[F:F + D])
-            assert got == w, k
+    assert int(nsx) * FP.digits_to_int(np.asarray(nx)) == \
+        rhu(x * x - y * y + (x << shift))
+    assert int(nsy) * FP.digits_to_int(np.asarray(ny)) == \
+        rhu(2 * x * y + (y << shift))

@@ -3,9 +3,7 @@
 The gather tail reconstructs reference values in true f64 — the same
 values as ``CompressedOrbit.decompress()`` — so a two-phase render
 through it must be BIT-IDENTICAL to the one-kernel LA machine on the
-decompressed orbit (which consumes f32(decompressed f64)).  On
-identity anchors (ratio 1: every position stored) the sweep kernel's
-df32 reconstruction is also exact, so all three paths must agree.
+decompressed orbit (which consumes f32(decompressed f64)).
 """
 
 import numpy as np
@@ -89,29 +87,33 @@ def test_gather_tail_matches_one_kernel_machine(mini):
     assert o.max() >= 2 * ORBIT_LEN  # the tail really wrapped the orbit
 
 
-def test_gather_tail_matches_sweep_on_identity_anchors(mini):
-    """ratio-1 anchors: every orbit position is stored, both tails read
-    identical values — grids must match the sweep kernel exactly."""
-    from fractalshark_tpu.ops.perturb_stream import \
-        perturb_render_stream_rc
-
+def test_gather_tail_identity_anchors_match_one_kernel(mini):
+    """ratio-1 anchors: every orbit position is stored, so the tail
+    reads the uncompressed values — the grid equals the one-kernel
+    machine on the (truncated) uncompressed orbit."""
     ptz, res_t, comp, la = mini
     ident = CompressedOrbit.identity(res_t)
-    init = _handoff(res_t, la, ptz, comp)
-    sweep = np.asarray(perturb_render_stream_rc(
-        ident, res_t.center_x, res_t.center_y, ptz, SIZE, SIZE, BUDGET,
-        init_state={k: v.copy() if hasattr(v, "copy") else v
-                    for k, v in init.items()}, interpret=True))
+    full = np.asarray(la_kernel.la_perturb_render(
+        res_t, la, ptz, SIZE, SIZE, BUDGET, sub_dtype=np.float32))
+    state = la_kernel.la_perturb_render(
+        res_t, la, ptz, SIZE, SIZE, BUDGET, sub_dtype=np.float32,
+        la_only=True, return_state=True)
+    _, _, ref_iter, dzr, dzi, dze, it, _ = state
+    it64 = np.asarray(it).astype(np.int64)
+    init = {"dzr": np.asarray(dzr), "dzi": np.asarray(dzi),
+            "dze": np.asarray(dze), "it": it64,
+            "jwait": np.asarray(ref_iter).astype(np.int64),
+            "done": (it64 >= BUDGET).astype(np.int32)}
     out = np.asarray(rc_tail_gather(
         ident, res_t.center_x, res_t.center_y, ptz, SIZE, SIZE, BUDGET,
         init_state=init))
-    np.testing.assert_array_equal(out, sweep)
+    np.testing.assert_array_equal(out, full)
 
 
 def test_two_phase_render_gather_tail_plumbing(mini):
-    """two_phase_render(tail="gather") routes phase 2 through
-    rc_tail_gather and matches the one-kernel machine — the exact
-    composition tools/view27_render.py runs at period-28B scale."""
+    """two_phase_render routes phase 2 through rc_tail_gather and
+    matches the one-kernel machine — the exact composition
+    tools/view27_render.py runs at period-28B scale."""
     from fractalshark_tpu.engine.renderers import two_phase_render
 
     ptz, res_t, comp, la = mini
@@ -119,44 +121,32 @@ def test_two_phase_render_gather_tail_plumbing(mini):
     full = np.asarray(la_kernel.la_perturb_render(
         res_rc, la, ptz, SIZE, SIZE, BUDGET, sub_dtype=np.float32))
     out = np.asarray(two_phase_render(
-        res_rc, la, ptz, SIZE, SIZE, BUDGET, comp=comp, tail="gather"))
+        res_rc, la, ptz, SIZE, SIZE, BUDGET, comp=comp))
     np.testing.assert_array_equal(out, full)
 
 
-def test_df32_tail_matches_sweep_on_real_compression(mini):
-    """The df32 gather tail (TPU mode: native f32/i32 program, split
-    anchors, i32 position pairs) reconstructs with the SAME double-float
-    formula as the sweep kernel — on the real compressed orbit the two
-    tails must produce bit-identical grids."""
-    from fractalshark_tpu.ops.perturb_stream import \
-        perturb_render_stream_rc
-
+def test_gather_tail_chunked_matches_one_dispatch(mini):
+    """The wrapping tail suspended every 32 steps == one dispatch."""
     ptz, res_t, comp, la = mini
     init = _handoff(res_t, la, ptz, comp)
-    sweep = np.asarray(perturb_render_stream_rc(
+    one = np.asarray(rc_tail_gather(
         comp, res_t.center_x, res_t.center_y, ptz, SIZE, SIZE, BUDGET,
-        init_state={k: v.copy() if hasattr(v, "copy") else v
-                    for k, v in init.items()}, interpret=True))
-    out = np.asarray(rc_tail_gather(
+        init_state=dict(init), chunk_steps=0))
+    many = np.asarray(rc_tail_gather(
         comp, res_t.center_x, res_t.center_y, ptz, SIZE, SIZE, BUDGET,
-        init_state=init, mode="df32"))
-    np.testing.assert_array_equal(out, sweep)
+        init_state=init, chunk_steps=32))
+    np.testing.assert_array_equal(many, one)
 
 
-def test_df32_tail_matches_f64_on_identity_anchors(mini):
-    """ratio-1 anchors: every position stored, both modes read exact
-    values — identical grids."""
+def test_gather_tail_rejects_empty_orbit(mini):
     ptz, res_t, comp, la = mini
-    ident = CompressedOrbit.identity(res_t)
-    init = _handoff(res_t, la, ptz, comp)
-    f64 = np.asarray(rc_tail_gather(
-        ident, res_t.center_x, res_t.center_y, ptz, SIZE, SIZE, BUDGET,
-        init_state={k: v.copy() if hasattr(v, "copy") else v
-                    for k, v in init.items()}, mode="f64"))
-    df32 = np.asarray(rc_tail_gather(
-        ident, res_t.center_x, res_t.center_y, ptz, SIZE, SIZE, BUDGET,
-        init_state=init, mode="df32"))
-    np.testing.assert_array_equal(df32, f64)
+    empty = CompressedOrbit(
+        anchors_x=comp.anchors_x[:0], anchors_y=comp.anchors_y[:0],
+        anchor_index=comp.anchor_index[:0], total_count=0,
+        cx_low=comp.cx_low, cy_low=comp.cy_low, error_exp=comp.error_exp)
+    with pytest.raises(ValueError):
+        rc_tail_gather(empty, res_t.center_x, res_t.center_y, ptz, SIZE,
+                       SIZE, BUDGET)
 
 
 def test_gather_tail_budget_exhaustion(mini):

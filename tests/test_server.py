@@ -88,6 +88,7 @@ def test_orbit_cache_shared_across_requests(live_server):
     st2 = srv.request({"op": "stats"}, sock)
     # the repeat render hit the shared cache instead of recomputing
     assert st2["orbit_cache_len"] == n_orbits
+    assert st2["orbit_cache_hits"] == st["orbit_cache_hits"] + 1
     assert st2["requests"] == 2
     s1 = json.loads(r1["stdout"].strip().splitlines()[-1])
     s2 = json.loads(r2["stdout"].strip().splitlines()[-1])

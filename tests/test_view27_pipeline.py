@@ -10,7 +10,7 @@ render against a budget many times the orbit length (view27_render.py)
 — the uncompressed orbit never exists anywhere.
 
 This test runs that exact composition on a truncated deep orbit small
-enough for CPU interpret mode, and checks the result pixel-identical
+enough for the CPU, and checks the result pixel-identical
 against the one-kernel FULL LAv2 render on the decompressed orbit with
 the same table (the RC reconstruction is exact by construction, so the
 two paths must agree bit for bit).
@@ -43,7 +43,7 @@ def mini(tmp_path_factory):
         zoom_factor="1e13", prec=512).square_aspect_ratio(SIZE, SIZE)
     calc = RefOrbitCalc()
     res = calc.get_and_create_useful_results(ptz, 50_000)
-    # truncate so interpret-mode budgets wrap the orbit several times
+    # truncate so small budgets wrap the orbit several times
     res_t = PerturbationResults(
         center_x=res.center_x, center_y=res.center_y,
         orbit_x=res.orbit_x[:ORBIT_LEN], orbit_y=res.orbit_y[:ORBIT_LEN],
@@ -86,7 +86,7 @@ def test_mini_view27_pipeline(mini):
     virt = VirtualResults.from_compressed(comp, res_t.center_x,
                                           res_t.center_y)
     two = np.asarray(two_phase_render(virt, la2, ptz, SIZE, SIZE,
-                                      BUDGET, comp=comp, interpret=True))
+                                      BUDGET, comp=comp))
 
     # oracle: one-kernel FULL LAv2 on the decompressed orbit, same table
     dx, dy = comp.decompress()
@@ -107,9 +107,8 @@ def test_memmap_dir_build_and_stage_window(mini):
     """The View #27-scale build path: marshalling into disk-backed
     memmaps (generate_native_rc_streamed(memmap_dir=...)) must be
     value-identical to the in-RAM build; the directory format must
-    round-trip; and a stage_window(1) table (the HBM-fitting device
-    table — the full 426M-node View #27 table is ~37 GB vs 16 GB HBM)
-    must produce the same two-phase render as the full table."""
+    round-trip; and a stage_window(1) table (the smaller device table
+    — the full 426M-node View #27 table is ~37 GB) must produce the same two-phase render as the full table."""
     from fractalshark_tpu.engine.native_la import LAReferenceArrays
     from fractalshark_tpu.engine.renderers import two_phase_render
 
@@ -177,13 +176,9 @@ def test_memmap_dir_build_and_stage_window(mini):
     virt = VirtualResults.from_compressed(comp, res_t.center_x,
                                           res_t.center_y)
     full = np.asarray(two_phase_render(virt, ld, ptz, SIZE, SIZE,
-                                       BUDGET, comp=comp, interpret=True))
-    # release_la_tables: the real View #27 drop-tables-between-phases
-    # path (node tables + anchors can't coexist in HBM at full scale)
+                                       BUDGET, comp=comp))
     wout = np.asarray(two_phase_render(virt, win, ptz, SIZE, SIZE,
-                                       BUDGET, comp=comp, interpret=True,
-                                       release_la_tables=True))
-    assert not getattr(win, "_packed_cache", {})  # tables were dropped
+                                       BUDGET, comp=comp))
     same = wout == full
     assert same.mean() > 0.7, f"only {same.mean():.0%} pixels identical"
     assert np.median(np.abs(wout.astype(np.int64)

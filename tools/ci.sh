@@ -4,30 +4,33 @@
 #   1. full test suite (CPU, 8 virtual devices)
 #   2. CLI smoke render of View 0 via Cpu64 → PNG
 #   3. tray queue smoke
-#   4. graft entry points (single-chip + 8-device mesh dryrun)
+#   4. graft entry points (single-device + 8-device mesh dryrun)
+# Runs on the CPU; on a machine with an NVIDIA GPU, `python chip_smoke.py`
+# and `python -m pytest -m gpu tests/` cover the device path.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
+export JAX_PLATFORMS=cpu
+
 echo "== tests =="
-python -m pytest tests/ -x -q
+python -m pytest tests/ -x -q -m 'not slow' -p xdist -n 6 --dist loadfile
 
 echo "== CLI smoke (View 0, Cpu64) =="
-JAX_PLATFORMS=cpu python - <<'EOF'
-import jax
-jax.config.update("jax_platforms", "cpu")
+python - <<'EOF'
 from fractalshark_tpu.cli import main
+import os, tempfile
+png = os.path.join(tempfile.mkdtemp(), "ci_view0.png")
 assert main(["--view", "0", "--render-algorithm", "Cpu64",
              "--width", "128", "--height", "128", "--iterations", "256",
-             "--output-png", "/tmp/ci_view0.png", "--stats"]) == 0
+             "--output-png", png, "--stats"]) == 0
 from fractalshark_tpu.io.png import read_png
-assert read_png("/tmp/ci_view0.png").shape == (128, 128, 4)
+assert read_png(png).shape == (128, 128, 4)
 print("CLI smoke OK")
 EOF
 
 echo "== tray smoke =="
-JAX_PLATFORMS=cpu python - <<'EOF'
-import jax, tempfile, os
-jax.config.update("jax_platforms", "cpu")
+python - <<'EOF'
+import tempfile, os
 from fractalshark_tpu.tray import main
 d = tempfile.mkdtemp()
 loc = os.path.join(d, "locs.txt")
@@ -39,8 +42,6 @@ EOF
 echo "== graft entries =="
 python __graft_entry__.py
 XLA_FLAGS="--xla_force_host_platform_device_count=8" python - <<'EOF'
-import jax
-jax.config.update("jax_platforms", "cpu")
 import __graft_entry__ as g
 g.dryrun_multichip(8)
 EOF

@@ -10,7 +10,7 @@ Consumes the artifacts of the two prior stages:
 Phase 1 runs the 64-bit LA machine (AT head skip covers the budget in
 ~budget/period macro steps; whole-orbit LA node per wrap) against a
 VirtualResults — the ~453 GB uncompressed orbit never exists anywhere.
-Phase 2 streams the RC tail from the anchors.
+Phase 2 runs the gather RC tail from the anchors (ops/rc_tail.py).
 
 Run from the repo root:
     python -c "exec(open('tools/view27_render.py').read())"
@@ -26,7 +26,8 @@ Env overrides (defaults in parens; point them under a persistent dir):
   V27_BUDGET      per-pixel iteration budget (the view preset's 5e13)
   V27_NODE_CAP    max device-table node count; stages below the cap are
                   dropped via LAReferenceArrays.stage_window (70e6 ~
-                  6 GB of HBM — the full 426.6M-node table is ~37 GB)
+                  6 GB of device memory — the full 426.6M-node table
+                  is ~37 GB)
 """
 
 import json
@@ -86,7 +87,7 @@ comp = CompressedOrbit(
 
 la = LAReferenceArrays.load_dir(LA_DIR)
 n_nodes_full = len(la.las)
-# stage-window the device table to the HBM cap: drop the lowest
+# stage-window the device table to the node cap: drop the lowest
 # stage(s) until the node count fits (each drop only moves the
 # one-time tail handoff earlier by at most one macro step of the
 # dropped stage — noise against the 5e13 budget)
@@ -107,8 +108,7 @@ save()
 
 virt = VirtualResults.from_compressed(comp, cx, cy)
 t0 = time.perf_counter()
-out = two_phase_render(virt, la_dev, ptz, SIZE, SIZE, BUDGET, comp=comp,
-                       release_la_tables=True)
+out = two_phase_render(virt, la_dev, ptz, SIZE, SIZE, BUDGET, comp=comp)
 o = np.asarray(out)
 dt = time.perf_counter() - t0
 state.update(phase="done", render_s=round(dt, 1),
