@@ -17,7 +17,9 @@ Comparisons, and why each tolerance is what it is:
 
 * integer paths are exact: NTT digits and the device reference orbit
   (against Python-int arithmetic), the orbit period, the mesh-sharded
-  orbit and render (against the single-GPU run);
+  orbit and render (against the single-GPU run); the session's stored
+  f64 orbit, which rounds the top digits on its own, agrees with the
+  host Python-int orbit to 1e-14;
 * float renders run in f32/HDR-f32 and are compared with the same
   algorithm on the CPU backend of the same process.  XLA's GPU backend
   contracts multiply-adds into FMAs (as nvcc does for the reference's
@@ -280,6 +282,7 @@ def phase_orbit():
     import numpy as np
     from fractalshark_tpu.core.highprecision import HighPrecision
     from fractalshark_tpu.core.views import get_view_preset
+    from fractalshark_tpu.engine.reforbit import compute_reference_orbit
     from fractalshark_tpu.ops.bignum import fixedpoint as FP
     from fractalshark_tpu.ops.bignum.orbit import (TpuOrbitSession,
                                                    orbit_chunk)
@@ -318,9 +321,24 @@ def phase_orbit():
           "device orbit digits differ from Python ints after 32 steps")
     log(f"[4] {limbs}-limb device orbit: 32 iterations bit-identical to "
         f"Python-int arithmetic on the View #30 center")
+    # the orbit the session stores (f64 shadows of the digits) against
+    # the host Python-int orbit, as tests/test_device_orbit_session.py
+    # does at small sizes: the shadows round the top digits separately,
+    # so they agree to 1e-14, not bit for bit
+    rad = HighPrecision("1e-40", prec=64)
+    dev = TpuOrbitSession(spec=spec, center_x=cx, center_y=cy,
+                          max_radius=rad, chunk_steps=32).run(
+                              32, periodicity=False)
+    host = compute_reference_orbit(cx, cy, 32, rad, periodicity=False,
+                                   precision_bits=spec.frac_bits)
+    err = max(float(np.abs(dev.orbit_x - host.orbit_x).max()),
+              float(np.abs(dev.orbit_y - host.orbit_y).max()))
+    log(f"[4] session orbit vs reforbit.compute_reference_orbit, 33 "
+        f"entries: max |diff| {err:.3e}")
+    check(len(dev.orbit_x) == len(host.orbit_x) == 33 and err <= 1e-14,
+          "session orbit strays from the Python-int orbit")
     sess = TpuOrbitSession(spec=spec, center_x=cx, center_y=cy,
-                           max_radius=HighPrecision("1e-40", prec=64),
-                           chunk_steps=256)
+                           max_radius=rad, chunk_steps=256)
     for run in ("cold", "warm"):
         t0 = time.perf_counter()
         res = sess.run(steps, periodicity=False)
