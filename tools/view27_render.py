@@ -26,8 +26,10 @@ Env overrides (defaults in parens; point them under a persistent dir):
   V27_BUDGET      per-pixel iteration budget (the view preset's 5e13)
   V27_NODE_CAP    max device-table node count; stages below the cap are
                   dropped via LAReferenceArrays.stage_window (70e6 ~
-                  6 GB of device memory — the full 426.6M-node table
-                  is ~37 GB)
+                  6 GB of device memory, sized for a 16 GB device; the
+                  full 426.6M-node table is ~37 GB, which with the
+                  8.7 GB anchor table fits an 80 GB H100 — not
+                  measured on the H100)
 """
 
 import json
